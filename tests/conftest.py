@@ -27,6 +27,11 @@ jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs an NVIDIA GPU and nvcc; skips elsewhere')
+
+
 @pytest.fixture(scope='session')
 def devices():
     devs = jax.devices()

@@ -1,0 +1,64 @@
+"""The port stands alone: importing it and every submodule loads neither
+JAX, Flax nor the JAX package, and its entry points never fall back to the
+CPU on their own."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_loads_no_jax():
+    code = textwrap.dedent('''
+        import importlib, pkgutil, sys
+        import tpudet3d_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            tpudet3d_torch.__path__, 'tpudet3d_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                            'orbax', 'tpudet3d'))
+        print(len(names), bad)
+        assert not bad, bad
+        assert len(names) >= 20, names
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_silent_cpu_default(monkeypatch):
+    from tpudet3d_torch.core import resolve_device
+    from tpudet3d_torch.infer import build_engine
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_engine()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        resolve_device()
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_source_names_no_jax_import():
+    """No module of the port names JAX or the JAX package in an import."""
+    root = os.path.join(REPO, 'tpudet3d_torch')
+    bad = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith('.py'):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    for line in fh:
+                        s = line.strip()
+                        if s.startswith(('import ', 'from ')) and any(
+                                s.split()[1].split('.')[0] == m for m in
+                                ('jax', 'flax', 'optax', 'orbax',
+                                 'tpudet3d')):
+                            bad.append((path, s))
+    assert not bad, bad

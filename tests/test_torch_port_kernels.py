@@ -1,0 +1,64 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card.  Skips where there is no card.  This file imports no JAX, so on the
+machine with the card it runs without the repo's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
+
+Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]); K2 f32 1e-4
+(normalised values, fused multiply-adds in the kernel); K3 scores 1e-6 and
+boxes 1e-3 px (only the box-vote sums are ordered differently).
+"""
+
+import pytest
+import torch
+
+from tpudet3d_torch.detect import (decode_detections,
+                                   decode_detections_plain, generate_anchors)
+from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
+from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
+                                resize_bilinear, resize_bilinear_plain)
+from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
+                               frame_batch, random_boxes)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2 ** -8)])
+def test_k1_kernel_matches_plain(cuda, dtype, atol):
+    frames = torch.from_numpy(frame_batch(2, 720, 1280)).to(cuda)
+    out = resize_bilinear(frames, (300, 300), True, 1 / 255.0, dtype)
+    ref = resize_bilinear_plain(frames, (300, 300), True, 1 / 255.0)
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mirror', [False, True])
+def test_k2_kernel_matches_plain(cuda, mirror):
+    frames = torch.from_numpy(frame_batch(2, 720, 1280)).to(cuda)
+    boxes = torch.from_numpy(random_boxes(2, 8, 720, 1280)).to(cuda)
+    args = ((224, 224), True, REG_SCALE, REG_OFFSET, mirror)
+    out = crop_and_resize(frames, boxes, *args, dtype=torch.float32)
+    ref = crop_and_resize_plain(frames, boxes, *args)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('setting', list(K3_SETTINGS))
+def test_k3_kernel_matches_plain(cuda, setting):
+    kw = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32,
+              **K3_SETTINGS[setting])
+    logits, deltas = (torch.from_numpy(a).to(cuda)
+                      for a in det_inputs(n=4, ties=True))
+    anchors = torch.from_numpy(generate_anchors()).to(cuda)
+    out = decode_detections(logits, deltas, anchors, **kw)
+    ref = decode_detections_plain(logits, deltas, anchors, **kw)
+    assert_dets_match(out.cpu().numpy(), ref.cpu().numpy(), box_atol=1e-3)

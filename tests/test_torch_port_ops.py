@@ -1,0 +1,240 @@
+"""Parity of the port's kernel plain versions (K1 resize, K2 crop, K3
+decode+NMS) and their helpers with the JAX package, on the CPU.  The CUDA
+kernels against these plain versions: tests/test_torch_port_kernels.py.
+
+Tolerances (gray levels of 0..255 images):
+  K1/K2 plain vs the JAX f32 functions       ≤ 1e-3 (f32 reordering)
+  K1/K2 plain vs the JAX bf16 serving calls  ≤ 2    (JAX rounds weights and
+                                                     intermediates to bf16)
+  K3 plain vs decode_detections (A=2044, C=9) scores 1e-6, boxes 1e-4 px
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpudet3d.detect import decode_detections as jax_decode
+from tpudet3d.detect import generate_anchors as jax_anchors
+from tpudet3d.detect.assigner import iou_xyxy as jax_iou
+from tpudet3d.detect.coder import CASCADE_STDS as JAX_CASCADE_STDS
+from tpudet3d.detect.coder import decode_boxes as jax_decode_boxes
+from tpudet3d.detect.coder import encode_boxes as jax_encode_boxes
+from tpudet3d.detect.nms import greedy_nms as jax_greedy
+from tpudet3d.detect.nms import soft_nms as jax_soft
+from tpudet3d.infer.engine import REG_MEAN as JAX_REG_MEAN
+from tpudet3d.infer.engine import REG_STD as JAX_REG_STD
+from tpudet3d.ops.image import crop_and_resize as jax_crop
+from tpudet3d.ops.image import resize_bilinear as jax_resize
+
+from tpudet3d_torch.detect import (CASCADE_STDS, decode_boxes,
+                                   decode_detections,
+                                   decode_detections_plain, encode_boxes,
+                                   generate_anchors, greedy_nms, iou_xyxy,
+                                   soft_nms)
+from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
+from tpudet3d_torch.kernels.build import CSRC, SIGNATURES
+from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
+                                resize_bilinear, resize_bilinear_plain)
+from torch_port_common import one_cpu_thread, set_no_tf32
+from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
+                               frame_batch, random_boxes)
+
+@pytest.fixture(autouse=True)
+def _cpu_settings():
+    set_no_tf32()
+    with one_cpu_thread():
+        yield
+
+
+# --- anchors, coder, IoU -------------------------------------------------
+
+def test_anchors_match():
+    np.testing.assert_array_equal(generate_anchors(), jax_anchors())
+    assert generate_anchors().shape == (2044, 4)
+
+
+def test_coder_matches():
+    rng = np.random.RandomState(0)
+    anchors = jax_anchors()
+    deltas = (rng.standard_normal((2, 2044, 4)) * 2).astype(np.float32)
+    deltas[0, :8, 2:] = 5.0                        # past the wh-ratio clip
+    for stds in [(0.1, 0.1, 0.2, 0.2), CASCADE_STDS]:
+        assert JAX_CASCADE_STDS == CASCADE_STDS
+        ref = jax_decode_boxes(jnp.asarray(anchors), jnp.asarray(deltas),
+                               stds=stds)
+        out = decode_boxes(torch.from_numpy(anchors),
+                           torch.from_numpy(deltas), stds=stds)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
+                                   atol=1e-4)
+        enc = encode_boxes(torch.from_numpy(anchors), out, stds=stds)
+        ref_enc = jax_encode_boxes(jnp.asarray(anchors), ref, stds=stds)
+        np.testing.assert_allclose(enc.numpy(), np.asarray(ref_enc),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_iou_matches():
+    b = random_boxes(1, 64, 100, 120)[0]
+    b[5] = [3, 3, 3, 9]                                    # zero area
+    ref = jax_iou(jnp.asarray(b), jnp.asarray(b))
+    out = iou_xyxy(torch.from_numpy(b), torch.from_numpy(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-7)
+
+
+# --- K1 resize -------------------------------------------------------------
+
+@pytest.mark.parametrize('hw,out_hw', [((360, 640), (300, 300)),
+                                       ((720, 1280), (300, 300)),
+                                       ((48, 64), (100, 120))],
+                         ids=['360p', '720p', 'upscale'])
+def test_k1_plain_matches_jax_f32(hw, out_hw):
+    frames = frame_batch(2, *hw)
+    ref = np.stack([np.asarray(jax_resize(jnp.asarray(f[..., ::-1]), out_hw,
+                                          dtype=jnp.float32))
+                    for f in frames])
+    out = resize_bilinear_plain(torch.from_numpy(frames), out_hw,
+                                reverse_channels=True)
+    assert out.shape == (2, *out_hw, 3) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3)
+
+
+def test_k1_plain_within_bf16_serving_call():
+    frames = frame_batch(2, 360, 640, seed=1)
+    ref = np.stack([np.asarray(jax_resize(jnp.asarray(f[..., ::-1]),
+                                          (300, 300), dtype=jnp.bfloat16)
+                               .astype(jnp.float32)) for f in frames])
+    out = resize_bilinear_plain(torch.from_numpy(frames), (300, 300),
+                                reverse_channels=True)
+    assert np.abs(out.numpy() - ref).max() <= 2.0
+
+
+def test_k1_scale_and_dtype():
+    frames = torch.from_numpy(frame_batch(1, 60, 80))
+    a = resize_bilinear_plain(frames, (30, 40), scale=1 / 255.0,
+                              dtype=torch.bfloat16)
+    b = resize_bilinear_plain(frames, (30, 40)) / 255.0
+    assert a.dtype == torch.bfloat16
+    np.testing.assert_allclose(a.float().numpy(), b.numpy(), atol=2 ** -8)
+
+
+# --- K2 crop ---------------------------------------------------------------
+
+def _jax_crops(frames, boxes, out_hw, dtype):
+    return np.concatenate([
+        np.asarray(jax_crop(jnp.asarray(f[..., ::-1]), jnp.asarray(b),
+                            out_hw, compute_dtype=dtype).astype(jnp.float32))
+        for f, b in zip(frames, boxes)])
+
+
+def test_k2_plain_matches_jax_f32():
+    frames = frame_batch(2, 360, 640, seed=2)
+    boxes = random_boxes(2, 12, 360, 640)
+    ref = _jax_crops(frames, boxes, (64, 48), jnp.float32)
+    out = crop_and_resize_plain(torch.from_numpy(frames),
+                                torch.from_numpy(boxes), (64, 48),
+                                reverse_channels=True)
+    assert out.shape == (24, 64, 48, 3)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3)
+
+
+def test_k2_plain_within_bf16_path():
+    frames = frame_batch(2, 360, 640, seed=3)
+    boxes = random_boxes(2, 12, 360, 640, 1)
+    ref = _jax_crops(frames, boxes, (64, 64), jnp.bfloat16)
+    out = crop_and_resize_plain(torch.from_numpy(frames),
+                                torch.from_numpy(boxes), (64, 64),
+                                reverse_channels=True)
+    assert np.abs(out.numpy() - ref).max() <= 2.0
+
+
+def test_k2_mirror_and_normalize():
+    """The TTA mirror half and the serving normalisation (bf16 constants
+    of the JAX program) against the JAX f32 crops."""
+    frames = frame_batch(2, 360, 640, seed=4)
+    boxes = random_boxes(2, 4, 360, 640, 2)
+    crops = _jax_crops(frames, boxes, (64, 64), jnp.float32)
+    inv_std = (1.0 / (np.asarray(JAX_REG_STD) * 255)).astype(np.float32)
+    scale = jnp.asarray(inv_std, jnp.bfloat16)
+    offset = jnp.asarray(np.asarray(JAX_REG_MEAN) * 255 * inv_std,
+                         jnp.bfloat16)
+    norm = np.asarray(jnp.asarray(crops) * scale - offset)
+    ref = np.concatenate([norm, norm[:, :, ::-1, :]])
+    out = crop_and_resize_plain(torch.from_numpy(frames),
+                                torch.from_numpy(boxes), (64, 64),
+                                reverse_channels=True, scale=REG_SCALE,
+                                offset=REG_OFFSET, mirror=True)
+    assert out.shape == (16, 64, 64, 3)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3 / 50)
+
+
+# --- K3 decode + NMS -------------------------------------------------------
+
+def _jax_dets(logits, deltas, **kw):
+    anchors = jnp.asarray(jax_anchors())
+    return np.stack([np.asarray(jax_decode(jnp.asarray(l), jnp.asarray(d),
+                                           anchors, **kw))
+                     for l, d in zip(logits, deltas)])
+
+
+@pytest.mark.parametrize('setting', list(K3_SETTINGS))
+@pytest.mark.parametrize('ties', [False, True], ids=['random', 'ties'])
+def test_k3_plain_matches_jax(setting, ties):
+    kw = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32,
+              **K3_SETTINGS[setting])
+    logits, deltas = det_inputs(seed=5, ties=ties)
+    ref = _jax_dets(logits, deltas, **kw)
+    out = decode_detections_plain(torch.from_numpy(logits),
+                                  torch.from_numpy(deltas),
+                                  torch.from_numpy(generate_anchors()), **kw)
+    assert out.shape == (2, 8, 6)
+    assert_dets_match(out.numpy(), ref)
+
+
+def test_nms_units_match_jax():
+    rng = np.random.RandomState(6)
+    b = random_boxes(1, 32, 200, 200, seed=6)[0]
+    s = np.sort(rng.uniform(0, 1, 32).astype(np.float32))[::-1].copy()
+    s[-5:] = 0.0
+    keep = greedy_nms(torch.from_numpy(b), torch.from_numpy(s), 0.3)
+    ref = jax_greedy(jnp.asarray(b), jnp.asarray(s), 0.3)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(ref))
+    dec = soft_nms(torch.from_numpy(b), torch.from_numpy(s), 0.5, 0.75)
+    ref = jax_soft(jnp.asarray(b), jnp.asarray(s), 0.5, 0.75)
+    np.testing.assert_allclose(dec.numpy(), np.asarray(ref), atol=1e-6)
+
+
+# --- wrappers and the C interface -----------------------------------------
+
+def test_wrappers_use_plain_on_cpu_without_counting():
+    frames = torch.from_numpy(frame_batch(1, 40, 60))
+    boxes = torch.from_numpy(random_boxes(1, 3, 40, 60))
+    logits, deltas = map(torch.from_numpy, det_inputs(n=1))
+    anchors = torch.from_numpy(generate_anchors())
+    counts = [f.launches for f in (resize_bilinear, crop_and_resize,
+                                   decode_detections)]
+    assert torch.equal(resize_bilinear(frames, (20, 30)),
+                       resize_bilinear_plain(frames, (20, 30)))
+    assert torch.equal(crop_and_resize(frames, boxes, (8, 8)),
+                       crop_and_resize_plain(frames, boxes, (8, 8)))
+    assert torch.equal(
+        decode_detections(logits, deltas, anchors, max_per_img=8,
+                          pre_nms_k=32),
+        decode_detections_plain(logits, deltas, anchors, max_per_img=8,
+                                pre_nms_k=32))
+    assert counts == [f.launches for f in (resize_bilinear, crop_and_resize,
+                                           decode_detections)]
+
+
+def test_ctypes_signatures_match_sources():
+    """Every C entry declared for ctypes exists in csrc with the same
+    parameter kinds (a pointer cut to 32 bits would only fail on the card)."""
+    src = ''.join(p.read_text() for p in sorted(CSRC.glob('*.cu')))
+    kinds = {'c_void_p': 'ptr', 'c_int': 'int', 'c_float': 'float'}
+    for name, argtypes in SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', src)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(',')]
+        got = ['ptr' if '*' in p else p.split()[0] for p in params]
+        assert got == [kinds[t.__name__] for t in argtypes], name

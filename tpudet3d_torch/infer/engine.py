@@ -1,0 +1,310 @@
+"""Two-stage serving engine (counterpart of ``tpudet3d/infer/engine.py``).
+
+One batched pass per call: preprocess (K1) → SSD forward → decode + NMS
+(K3) → box scaling, expand, margin and clip → crop-resize-normalize (K2) →
+multi-head regressor → per-crop head select → optional refine passes →
+``[N, max_det, 26]`` packed rows.  Every stage runs over the whole batch:
+one detector forward over N frames, one K3 launch over N images, one K2
+launch over N·max_det boxes and one regressor forward over every crop.
+All ``max_det`` rows are always processed (padded rows carry score 0), as
+the JAX program's fixed shapes do, and nothing on the path waits for the
+device until the caller reads the result.
+
+PyTorch runs eagerly, so the JAX engine's per-shape executable cache has no
+counterpart yet (CUDA-graph capture is a later slice).  int8 serving and
+``shard()`` are not ported (ROADMAP.md).
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..detect.anchors import INPUT_SIZE, generate_anchors
+from ..detect.nms import decode_detections
+from ..ops.image import crop_and_resize, resize_bilinear
+
+__all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
+           'tta_flip_average', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
+           'REG_OFFSET']
+
+REG_MEAN = (0.5931, 0.4690, 0.4229)
+REG_STD = (0.2471, 0.2214, 0.2157)
+
+
+def _reg_norm():
+    """The crop normalisation ``x*scale - offset`` of the JAX serving
+    program, whose constants are bfloat16 (``engine.py:254-257``)."""
+    inv_std = (1.0 / (np.asarray(REG_STD) * 255)).astype(np.float32)
+    offset = np.asarray(REG_MEAN) * 255 * inv_std
+    as_bf16 = lambda v: tuple(  # noqa: E731
+        torch.tensor(v, dtype=torch.float32).to(torch.bfloat16).float()
+        .tolist())
+    return as_bf16(inv_std), as_bf16(offset)
+
+
+REG_SCALE, REG_OFFSET = _reg_norm()
+
+
+def tta_flip_average(all_kp, cls_logits, k, crop_w):
+    """Merge a doubled-batch regressor output (originals ++ mirrored crops)
+    into averaged predictions for the k originals.  ``all_kp`` is
+    ``[heads, 2k, 9, 2]`` normalised by the crop size; the mirror-back of x
+    is ``(1 - 1/W) - x``.  Keypoint indices are not re-permuted."""
+    flip_c = 1.0 - 1.0 / float(crop_w)
+    kp_m = all_kp[:, k:].clone()
+    kp_m[..., 0] = flip_c - kp_m[..., 0]
+    return (0.5 * (all_kp[:, :k] + kp_m),
+            0.5 * (cls_logits[:k] + cls_logits[k:]))
+
+
+def refine_boxes(kp, boxes, frame_wh, margin_px, edge_grow, eps=0.015):
+    """Next-pass crop boxes from pass-N keypoints.
+
+    kp ``[...,9,2]`` normalised to each box; boxes ``[...,4]`` xyxy px;
+    frame_wh ``(w, h)``.  Box = predicted keypoint extent + margin; a side
+    whose keypoints saturate at the crop edge grows by ``edge_grow``·box
+    side instead."""
+    w, h = frame_wh
+    wh = boxes[..., 2:4] - boxes[..., 0:2]
+    kp_px = kp * wh[..., None, :] + boxes[..., None, 0:2]
+    rm = float(np.float32(margin_px))
+    grow = edge_grow * wh
+    pad_lo = torch.where(kp.amin(-2) <= eps, grow.clamp(min=rm), rm)
+    pad_hi = torch.where(kp.amax(-2) >= 1.0 - eps, grow.clamp(min=rm), rm)
+    lo = kp_px.amin(-2) - pad_lo
+    hi = kp_px.amax(-2) + pad_hi
+    lo = torch.stack([lo[..., 0].clamp(0, w - 1), lo[..., 1].clamp(0, h - 1)],
+                     -1)
+    hi = torch.stack([hi[..., 0].clamp(0, w), hi[..., 1].clamp(0, h)], -1)
+    hi = torch.maximum(hi, lo + 1.0)       # degenerate-extent guard
+    return torch.cat([lo, hi], dim=-1)
+
+
+@dataclass
+class EngineConfig:
+    max_detections: int = 8
+    det_conf: float = 0.6
+    nms_iou: float = 0.45
+    score_thr: float = 0.02
+    # Gaussian soft-NMS sigma; 0 = hard greedy NMS
+    soft_nms_sigma: float = 0.0
+    # soft-NMS duplicate cutoff: overlaps above it are zeroed, not decayed
+    soft_nms_dup_iou: float = 0.75
+    # box voting threshold (Gidaris & Komodakis 2015); 0 = off
+    box_vote_iou: float = 0.0
+    crop_size: Tuple[int, int] = (224, 224)
+    expand_ratio: Tuple[float, float] = (1.0, 1.0)
+    # fixed pixel margin around the detector box before cropping
+    crop_margin_px: float = 0.0
+    # keypoint-refinement passes: re-crop around the predicted extent
+    refine_passes: int = 0
+    refine_margin_px: float = 10.0
+    # horizontal-flip TTA for the regressor (one doubled batch)
+    tta_flip: bool = False
+    # a side whose keypoints press against the crop edge grows by this
+    # fraction of the box side in the next pass
+    refine_edge_grow: float = 0.2
+    input_is_bgr: bool = True
+    # int8 PTQ scales: not ported yet, must stay None
+    det_int8_scales: Optional[dict] = None
+    reg_int8_scales: Optional[dict] = None
+    # downscale frames on the host (cv2 INTER_AREA) before upload; boxes
+    # are rescaled to source pixels on output
+    host_downscale: int = 1
+
+
+def _unpack(rows, scale=1.0):
+    return {
+        'boxes': rows[:, 0:4] * scale,
+        'scores': rows[:, 4],
+        'det_labels': rows[:, 5].astype(np.int32),
+        'kp': rows[:, 6:24].reshape(-1, 9, 2),
+        'labels': rows[:, 24].astype(np.int32),
+    }
+
+
+class TwoStageEngine:
+    """Batched detector → regressor engine.
+
+    ``detector`` is an ``SSDDetector`` and ``regressor`` a
+    ``MultiHeadRegressor``; both are moved to ``device`` (the card unless
+    ``device='cpu'``) in ``channels_last`` and eval mode."""
+
+    def __init__(self, detector, regressor,
+                 config: Optional[EngineConfig] = None, device=None):
+        self.cfg = config or EngineConfig()
+        self.device = resolve_device(device)
+        fmt = torch.channels_last
+        self.det_model = detector.to(self.device, memory_format=fmt).eval()
+        self.reg_model = regressor.to(self.device, memory_format=fmt).eval()
+        self.anchors = torch.from_numpy(generate_anchors()).to(self.device)
+        self._pending = []   # FIFO of in-flight results
+        self._consts = {}
+
+    def _const(self, values):
+        """A float32 device tensor for ``values``, made once."""
+        key = tuple(float(v) for v in values)
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.tensor(key, dtype=torch.float32, device=self.device)
+            self._consts[key] = t
+        return t
+
+    def decode_kwargs(self):
+        """The K3 settings of this engine's configuration."""
+        cfg = self.cfg
+        return dict(score_thr=cfg.score_thr, iou_thr=cfg.nms_iou,
+                    max_per_img=cfg.max_detections,
+                    pre_nms_k=max(4 * cfg.max_detections, 32),
+                    soft_nms_sigma=cfg.soft_nms_sigma,
+                    soft_nms_dup_iou=cfg.soft_nms_dup_iou,
+                    box_vote_iou=cfg.box_vote_iou)
+
+    def _check_supported(self):
+        if self.cfg.det_int8_scales is not None \
+                or self.cfg.reg_int8_scales is not None:
+            raise NotImplementedError(
+                'int8 serving (infer/quant.py) is not ported yet')
+
+    def _regress(self, frames, boxes):
+        """boxes ``[N,M,4]`` → kp ``[N,M,9,2]``, labels ``[N,M]``."""
+        cfg = self.cfg
+        n, m = boxes.shape[:2]
+        crops = crop_and_resize(frames, boxes.contiguous(), cfg.crop_size,
+                                reverse_channels=cfg.input_is_bgr,
+                                scale=REG_SCALE, offset=REG_OFFSET,
+                                mirror=cfg.tta_flip,
+                                dtype=self.reg_model.dtype)
+        all_kp, cls_logits = self.reg_model(crops)
+        if cfg.tta_flip:
+            all_kp, cls_logits = tta_flip_average(all_kp, cls_logits, n * m,
+                                                  cfg.crop_size[1])
+        labels = cls_logits.argmax(-1)                             # [N*M]
+        kp = all_kp[labels, torch.arange(n * m, device=labels.device)]
+        return kp.reshape(n, m, 9, 2), labels.reshape(n, m)
+
+    @torch.no_grad()
+    def _detect(self, frames, h, w, margin):
+        """Stage 1 over the batch: ``(det_in, logits, deltas, dets, boxes)``
+        with ``dets [N,max_det,6]`` from K3 in detector pixels and ``boxes
+        [N,max_det,4]`` scaled, expanded, margined and clipped to the
+        frame."""
+        self._check_supported()
+        cfg = self.cfg
+        det_in = resize_bilinear(frames, (INPUT_SIZE, INPUT_SIZE),
+                                 reverse_channels=cfg.input_is_bgr,
+                                 scale=1.0 / 255.0,
+                                 dtype=self.det_model.dtype)
+        logits, deltas = self.det_model(det_in)
+        dets = decode_detections(logits.contiguous(), deltas.contiguous(),
+                                 self.anchors, **self.decode_kwargs())
+        s = INPUT_SIZE
+        boxes = dets[..., :4] * self._const([w / s, h / s, w / s, h / s])
+        if tuple(cfg.expand_ratio) != (1.0, 1.0):
+            c = (boxes[..., :2] + boxes[..., 2:]) / 2
+            wh = (boxes[..., 2:] - boxes[..., :2]) \
+                * self._const(cfg.expand_ratio)
+            boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1)
+        if margin:
+            m = float(np.float32(margin))
+            boxes = boxes + self._const([-m, -m, m, m])
+        boxes = torch.minimum(boxes.clamp(min=0.0), self._const([w, h, w, h]))
+        return det_in, logits, deltas, dets, boxes
+
+    @torch.no_grad()
+    def _pipeline_core(self, frames, h, w, margin, refine_margin):
+        """frames ``[N,H,W,3]`` uint8 on the engine's device → packed
+        ``[N, max_det, 26]`` float32 on the device."""
+        cfg = self.cfg
+        _, _, _, dets, boxes = self._detect(frames, h, w, margin)
+        scores = dets[..., 4]
+        det_labels = dets[..., 5]
+        kp, reg_labels = self._regress(frames, boxes)
+        for _ in range(int(cfg.refine_passes)):
+            boxes = refine_boxes(kp, boxes, (w, h), refine_margin,
+                                 cfg.refine_edge_grow)
+            kp, reg_labels = self._regress(frames, boxes)
+        conf_mask = scores > cfg.det_conf
+        n, md = scores.shape
+        return torch.cat([
+            boxes, scores[..., None], det_labels[..., None],
+            kp.reshape(n, md, 18), reg_labels.float()[..., None],
+            conf_mask.float()[..., None]], dim=-1)
+
+    def _pipeline(self, frame, h, w, margin=None, refine_margin=None):
+        """frame ``[H,W,3]`` uint8 on the device → packed ``[max_det, 26]``."""
+        if margin is None:
+            margin = self.cfg.crop_margin_px
+        if refine_margin is None:
+            refine_margin = self.cfg.refine_margin_px
+        return self._pipeline_core(frame[None], h, w, margin,
+                                   refine_margin)[0]
+
+    def _pipeline_batch(self, frames, h, w, margin=None):
+        """frames ``[N,H,W,3]`` uint8 on the device → packed
+        ``[N, max_det, 26]`` on the device (what ``bench.py`` times)."""
+        if margin is None:
+            margin = self.cfg.crop_margin_px
+        return self._pipeline_core(frames, h, w, margin,
+                                   self.cfg.refine_margin_px)
+
+    def _upload(self, frames):
+        t = torch.as_tensor(np.ascontiguousarray(frames))
+        if self.device.type == 'cuda':
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def shard(self, mesh):
+        raise NotImplementedError(
+            'multi-device serving (shard) is not ported yet')
+
+    # --- batched (server) API ---------------------------------------------
+    def infer_batch(self, frames):
+        """frames ``[N,H,W,3]`` uint8 → list of per-frame result dicts."""
+        n, h, w = frames.shape[:3]
+        packed = self._pipeline_batch(self._upload(frames), h, w)
+        packed = packed.cpu().numpy()
+        return [_unpack(packed[i, np.nonzero(packed[i, :, 25] > 0)[0]])
+                for i in range(n)]
+
+    # --- synchronous API -------------------------------------------------
+    def __call__(self, frame):
+        """frame: HWC uint8 numpy → dict of numpy outputs for the confident
+        detections."""
+        self.run_async(frame)
+        while len(self._pending) > 1:    # drop stale in-flight results
+            self._pending.pop(0)
+        return self.wait_and_grab()
+
+    # --- async API ---------------------------------------------------------
+    def run_async(self, frame):
+        """Upload and enqueue one frame without waiting for the device;
+        results are a FIFO read by :meth:`wait_and_grab`."""
+        scale = 1.0
+        d = int(self.cfg.host_downscale)
+        if d > 1:
+            import cv2 as cv
+            h0, w0 = frame.shape[:2]
+            frame = cv.resize(frame, (w0 // d, h0 // d),
+                              interpolation=cv.INTER_AREA)
+            scale = float(d)
+        h, w = frame.shape[:2]
+        # the crop margins stay fixed in SOURCE pixels under downscaling
+        out = self._pipeline(self._upload(frame), h, w,
+                             margin=self.cfg.crop_margin_px / max(d, 1),
+                             refine_margin=self.cfg.refine_margin_px
+                             / max(d, 1))
+        self._pending.append((out, scale))
+
+    def wait_and_grab(self):
+        if not self._pending:
+            raise RuntimeError('no async inference in flight')
+        out, scale = self._pending.pop(0)
+        packed = out.cpu().numpy()
+        return _unpack(packed[np.nonzero(packed[:, 25] > 0)[0]], scale)
+
+    def warmup(self, frame_shape=(720, 1280, 3)):
+        self(np.zeros(frame_shape, np.uint8))

@@ -1,0 +1,171 @@
+"""Shared building blocks (counterpart of ``tpudet3d/models/layers.py``).
+
+Tensors inside the models are NCHW; the entry points hand them over as
+``channels_last`` views of NHWC memory.  Parameters stay float32 and every
+layer computes in the dtype of its input, so a bfloat16 input gives the
+bfloat16 compute of a Flax module built with ``dtype=bf16`` (parameters are
+cast at the point of use, batch norm accumulates in float32 and rounds its
+output once).
+
+Submodules are named like the Flax tree (``ConvBN_0.Conv_0``,
+``SqueezeExcite_0.Dense_1``, ``BatchNorm_0``), so ``utils/convert.py`` maps a
+Flax path onto a ``state_dict`` key mechanically.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ['make_divisible', 'hard_sigmoid', 'hard_swish',
+           'global_pool', 'linear', 'conv', 'batch_norm', 'ConvBN',
+           'SqueezeExcite', 'InvertedResidual', 'init_weights']
+
+
+def make_divisible(v, divisor=8, min_value=None):
+    """Round channels to a multiple of ``divisor`` (tf slim convention)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def hard_sigmoid(x):
+    return F.relu6(x + 3.0) / 6.0
+
+
+def hard_swish(x):
+    return x * hard_sigmoid(x)
+
+
+def global_pool(x, mode='avg'):
+    """[B,C,H,W] → [B,C]."""
+    if mode == 'avg':
+        return x.mean(dim=(2, 3))
+    if mode == 'max':
+        return x.amax(dim=(2, 3))
+    if mode == 'avg+max':
+        return x.mean(dim=(2, 3)) + x.amax(dim=(2, 3))
+    raise ValueError(f'Unknown pooling mode: {mode}')
+
+
+def linear(x, layer):
+    """``nn.Linear`` computed in the dtype of ``x``."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def conv(x, layer):
+    """``nn.Conv2d`` computed in the dtype of ``x``."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
+                    layer.padding, layer.dilation, layer.groups)
+
+
+def batch_norm(x, bn):
+    """Inference batch norm: float32 statistics, output in the dtype of x."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+class ConvBN(nn.Module):
+    """Conv → BatchNorm → activation, symmetric padding ``(k-1)//2``."""
+
+    def __init__(self, in_channels, features, kernel_size=3, strides=1,
+                 groups=1, act=hard_swish):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        self.Conv_0 = nn.Conv2d(in_channels, features, kernel_size, strides,
+                                pad, groups=groups, bias=False)
+        # Flax momentum 0.9 is torch momentum 0.1 (only read in training)
+        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.act = act
+
+    def forward(self, x):
+        x = batch_norm(conv(x, self.Conv_0), self.BatchNorm_0)
+        return x if self.act is None else self.act(x)
+
+
+class SqueezeExcite(nn.Module):
+    """SE block with a hard-sigmoid gate."""
+
+    def __init__(self, channels, reduction=4):
+        super().__init__()
+        hidden = make_divisible(channels // reduction, 8)
+        self.Dense_0 = nn.Linear(channels, hidden)
+        self.Dense_1 = nn.Linear(hidden, channels)
+
+    def forward(self, x):
+        y = x.mean(dim=(2, 3))
+        y = F.relu(linear(y, self.Dense_0))
+        y = hard_sigmoid(linear(y, self.Dense_1))
+        return x * y[:, :, None, None]
+
+
+class InvertedResidual(nn.Module):
+    """MobileNet inverted residual: expand 1x1 (skipped when exp == in) →
+    depthwise kxk → optional SE → project 1x1; identity skip when stride 1
+    and in == out.  ``se_after_act`` applies SE after the post-depthwise
+    activation (the timm ordering of the 21k variant)."""
+
+    def __init__(self, in_channels, hidden_dim, out_channels, kernel_size,
+                 strides, use_se, use_hs, se_after_act=False):
+        super().__init__()
+        self.act = hard_swish if use_hs else F.relu
+        self.identity = strides == 1 and in_channels == out_channels
+        self.act_first = in_channels == hidden_dim or se_after_act
+        convs = []
+        if in_channels != hidden_dim:
+            convs.append(ConvBN(in_channels, hidden_dim, 1, 1, act=self.act))
+        convs.append(ConvBN(hidden_dim, hidden_dim, kernel_size, strides,
+                            groups=hidden_dim, act=None))
+        convs.append(ConvBN(hidden_dim, out_channels, 1, 1, act=None))
+        for i, m in enumerate(convs):
+            self.add_module(f'ConvBN_{i}', m)
+        self.n_convs = len(convs)
+        self.SqueezeExcite_0 = SqueezeExcite(hidden_dim) if use_se else None
+
+    def forward(self, x):
+        convs = [getattr(self, f'ConvBN_{i}') for i in range(self.n_convs)]
+        y = x
+        for m in convs[:-2]:
+            y = m(y)
+        y = convs[-2](y)
+        se = self.SqueezeExcite_0
+        if self.act_first:
+            y = self.act(y)
+            if se is not None:
+                y = se(y)
+        else:
+            if se is not None:
+                y = se(y)
+            y = self.act(y)
+        y = convs[-1](y)
+        return x + y if self.identity else y
+
+
+def _lecun_normal_(tensor, fan_in, generator):
+    # Flax's default kernel init: truncated normal at ±2 std, variance 1/fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_weights(module, generator):
+    """Seeded random init with the JAX package's initialisers: lecun-normal
+    kernels, zero biases, identity batch norm."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, generator)
+            m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            m.reset_parameters()
+    return module

@@ -1,0 +1,199 @@
+"""Image ops of the serving path (counterpart of ``tpudet3d/ops/image.py``).
+
+Two kernels live here, each as a plain PyTorch version and a wrapper:
+
+* K1 ``resize_bilinear``: uint8 NHWC frames → antialiased bilinear resize
+  (``jax.image.resize(..., 'bilinear')`` semantics), optional channel
+  reversal and scale (``kernels/csrc/resize.cu``).
+* K2 ``crop_and_resize``: boxes of uint8 NHWC frames → bilinear crops with
+  cv2 pixel-centre sampling, border clamp, per-channel ``x*scale - offset``
+  and an optional mirrored copy for TTA (``kernels/csrc/crop.cu``).
+
+A wrapper runs the plain version only for a tensor on the CPU; on a CUDA
+tensor it launches the kernel or raises.  ``wrapper.launches`` counts the
+kernel launches.
+"""
+
+import numpy as np
+import torch
+
+from ..kernels.build import check, library, stream_args
+
+__all__ = ['resize_weights', 'resize_bilinear_plain', 'resize_bilinear',
+           'crop_and_resize_plain', 'crop_and_resize']
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def resize_weights(in_size, out_size, device=None):
+    """``[out, in]`` float32 weights of ``jax.image.resize``'s antialiased
+    bilinear filter along one axis.
+
+    Output pixel ``o`` samples the input at ``s = (o + 0.5) * in/out - 0.5``.
+    The triangle filter ``max(0, 1 - |s - i| / k)`` is widened to
+    ``k = max(in/out, 1)`` when downscaling (an average over the footprint
+    instead of point sampling), and each row is normalised to sum to 1.
+    """
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(out_size, dtype=torch.float32, device=device)
+               + 0.5) * inv_scale - 0.5)
+    grid = torch.arange(in_size, dtype=torch.float32, device=device)
+    x = (sample[:, None] - grid[None, :]).abs() / kernel_scale
+    w = (1.0 - x).clamp(min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def resize_bilinear_plain(frames, out_hw, reverse_channels=False, scale=1.0,
+                          dtype=torch.float32):
+    """``[N,H,W,C]`` → ``[N,h,w,C]``: the weight matrices of
+    :func:`resize_weights` applied per axis in float32, then ``*scale``."""
+    x = frames.float()
+    if reverse_channels:
+        x = x.flip(-1)
+    wy = resize_weights(x.shape[1], out_hw[0], x.device)
+    wx = resize_weights(x.shape[2], out_hw[1], x.device)
+    x = torch.einsum('oh,nhwc->nowc', wy, x)
+    x = torch.einsum('pw,nowc->nopc', wx, x)
+    return (x * scale).to(dtype)
+
+
+def _check_frames(frames):
+    if frames.dtype != torch.uint8 or frames.dim() != 4 \
+            or frames.shape[-1] != 3 or not frames.is_contiguous():
+        raise ValueError('expected contiguous uint8 frames [N,H,W,3], got '
+                         f'{frames.dtype} {tuple(frames.shape)}')
+
+
+def _check_dtype(dtype):
+    if dtype not in _OUT_DTYPES:
+        raise ValueError(f'output dtype must be one of {_OUT_DTYPES}')
+
+
+def _recip(x):
+    """1/x rounded to float32."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def resize_bilinear(frames, out_hw, reverse_channels=False, scale=1.0,
+                    dtype=torch.float32):
+    """K1: uint8 ``[N,H,W,3]`` → ``[N,h,w,3]`` of ``dtype`` (f32 or bf16)."""
+    if frames.device.type == 'cpu':
+        return resize_bilinear_plain(frames, out_hw, reverse_channels, scale,
+                                     dtype)
+    if frames.device.type != 'cuda':
+        raise ValueError(f'unsupported device {frames.device}')
+    _check_frames(frames)
+    _check_dtype(dtype)
+    n, h, w, _ = frames.shape
+    oh, ow = out_hw
+    out = torch.empty((n, oh, ow, 3), dtype=dtype, device=frames.device)
+    err = library().tpd_resize_bilinear_u8(
+        frames.data_ptr(), out.data_ptr(), n, h, w, oh, ow,
+        1.0 / (oh / h), 1.0 / (ow / w), int(reverse_channels), scale,
+        int(dtype == torch.bfloat16), *stream_args(frames))
+    check(err, 'resize_bilinear')
+    resize_bilinear.launches += 1
+    return out
+
+
+resize_bilinear.launches = 0
+
+
+def crop_and_resize_plain(frames, boxes, out_hw=(224, 224),
+                          reverse_channels=False, scale=(1.0, 1.0, 1.0),
+                          offset=(0.0, 0.0, 0.0), mirror=False,
+                          dtype=torch.float32):
+    """``frames [N,H,W,C]``, ``boxes [N,K,4]`` xyxy px → crops
+    ``[N*K,h,w,C]`` (with ``mirror``: ``[2*N*K,h,w,C]``, all originals then
+    their horizontal mirrors).
+
+    Output pixel ``(p, q)`` of a box samples ``y = (p + 0.5) * bh/h - 0.5 +
+    y0`` (``bh`` floored at 1 px) with the rounding of the JAX program,
+    clamped to ``[0, H-1]``, likewise in x,
+    and interpolates the four neighbours bilinearly; then ``x * scale[c] -
+    offset[c]`` per output channel."""
+    n, h_in, w_in, _ = frames.shape
+    k = boxes.shape[1]
+    oh, ow = out_hw
+    boxes = boxes.float()
+    x0, y0, x1, y1 = boxes.unbind(-1)                               # [N,K]
+    bw = (x1 - x0).clamp(min=1.0)
+    bh = (y1 - y0).clamp(min=1.0)
+    dev = frames.device
+
+    def sample(size_out, side, start, size_in):
+        # XLA's arithmetic, which the kernel repeats: side / size_out as a
+        # product with the f32 reciprocal, and (dst + 0.5) * step - 0.5 as
+        # one fused multiply-add (emulated in float64: the product is exact)
+        step = side * _recip(size_out)
+        dst = torch.arange(size_out, dtype=torch.float32, device=dev) + 0.5
+        s = (dst.double() * step[..., None].double() - 0.5).float()
+        s = s + start[..., None]
+        s = s.clamp(0.0, size_in - 1.0)
+        f = s.floor()
+        i0 = f.long()
+        return i0, (i0 + 1).clamp(max=size_in - 1), s - f
+
+    iy0, iy1, wy = sample(oh, bh, y0, h_in)                        # [N,K,h]
+    ix0, ix1, wx = sample(ow, bw, x0, w_in)                        # [N,K,w]
+    img = frames.flip(-1) if reverse_channels else frames
+    nidx = torch.arange(n, device=dev)[:, None, None, None]
+
+    def tap(iy, ix):
+        return img[nidx, iy[..., :, None], ix[..., None, :]].float()
+
+    wy = wy[..., :, None, None]
+    wx = wx[..., None, :, None]
+    top = (1.0 - wx) * tap(iy0, ix0) + wx * tap(iy0, ix1)
+    bot = (1.0 - wx) * tap(iy1, ix0) + wx * tap(iy1, ix1)
+    v = (1.0 - wy) * top + wy * bot                             # [N,K,h,w,C]
+    s = torch.tensor(scale, dtype=torch.float32, device=dev)
+    o = torch.tensor(offset, dtype=torch.float32, device=dev)
+    v = (v * s - o).reshape(n * k, oh, ow, -1)
+    if mirror:
+        v = torch.cat([v, v.flip(2)])
+    return v.to(dtype)
+
+
+def crop_and_resize(frames, boxes, out_hw=(224, 224), reverse_channels=False,
+                    scale=(1.0, 1.0, 1.0), offset=(0.0, 0.0, 0.0),
+                    mirror=False, dtype=torch.float32):
+    """K2: see :func:`crop_and_resize_plain`.  On the card ``boxes`` must be
+    a contiguous float32 ``[N,K,4]`` tensor on the frames' device; it is
+    read by the kernel, so the host never waits for it."""
+    if frames.device.type == 'cpu':
+        return crop_and_resize_plain(frames, boxes, out_hw, reverse_channels,
+                                     scale, offset, mirror, dtype)
+    if frames.device.type != 'cuda':
+        raise ValueError(f'unsupported device {frames.device}')
+    _check_frames(frames)
+    _check_dtype(dtype)
+    n, h, w, _ = frames.shape
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 \
+            or boxes.shape[0] != n or boxes.shape[2] != 4 \
+            or not boxes.is_contiguous() or boxes.device != frames.device:
+        raise ValueError('expected contiguous float32 boxes [N,K,4] on '
+                         f'{frames.device}, got {boxes.dtype} '
+                         f'{tuple(boxes.shape)} on {boxes.device}')
+    k = boxes.shape[1]
+    oh, ow = out_hw
+    out = torch.empty(((2 if mirror else 1) * n * k, oh, ow, 3), dtype=dtype,
+                      device=frames.device)
+    err = library().tpd_crop_resize_u8(
+        frames.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, h, w, k, oh,
+        ow, _recip(oh), _recip(ow), int(reverse_channels), *scale, *offset,
+        int(mirror),
+        int(dtype == torch.bfloat16), *stream_args(frames))
+    check(err, 'crop_and_resize')
+    crop_and_resize.launches += 1
+    return out
+
+
+crop_and_resize.launches = 0
