@@ -6,18 +6,27 @@ Phases, each fatal on failure:
 
 1. Build the CUDA kernels from ``tpudet3d_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (K1 resize at N=1 and 16 of 720p, K2 crop on 128
-   boxes with TTA off and on, K3 decode+NMS at N=16, A=2044, C=9, K=32 in
-   the greedy, soft-NMS and box-vote settings) and time kernel, plain
+   paths' shapes (K1 resize at N=1 and 16 of 720p, K2 crop on 128 boxes
+   with TTA off and on, K3 decode+NMS at N=16, A=2044, C=9, K=32 in the
+   greedy, soft-NMS and box-vote settings, K4 head epilogue on 128 crops
+   with TTA off and on in refine and pack mode with bf16 logits that carry
+   exact ties, K5 oriented-box IoU at P=8 and 128 on random boxes and on
+   exact cases, and against scipy on 32 pairs) and time kernel, plain
    version and, where one exists, the PyTorch library call.
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
-   ``wait_and_grab``; check the outputs and that every kernel's launch
-   counter rose; hold the path's own intermediates against the plain
-   versions.
+   ``wait_and_grab``; check the outputs and that K1–K4 were launched; hold
+   the path's own intermediates against the plain versions.
 4. Time server frames/s at batches 16 and 32 (device-resident input,
    median of 3 loops) and the blocked single-frame latency.
+5. Drive the evaluation path at full width: ``objectron_eval``'s
+   ``evaluate_category`` over 2 categories × 24 synthetic portrait
+   1280×720 examples at batch 8, with the CLI's defaults at ``det_tresh``
+   0 and with ``--preset recall``; check the reports and that K1–K5 were
+   launched; re-score the same lifted predictions with the plain K5 (same
+   IoUs, same report text); hold the card's float32 EPnP lift against the
+   float64 host lift; time examples/s and its split.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -25,7 +34,9 @@ printing no result, when CUDA is unavailable or any phase fails.
 """
 
 import argparse
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +48,13 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, non-tensor float32, published
 FRAME = (720, 1280, 3)
+EVAL_FRAME = (1280, 720, 3)    # portrait frames of the evaluation phase
+EVAL_EXAMPLES = 24             # per category
+EVAL_CLASSES = ('bike', 'book')
+K4_REFINE = (1280, 720, 10.0, 0.2)     # (w, h, margin_px, edge_grow)
+# float32 EPnP lift of exact box projections against the float64 lift: the
+# CPU parity tests find ~1e-4 (tests/test_torch_port_box3d.py)
+LIFT_TOL = 1e-3
 
 
 def expect(cond, msg):
@@ -226,6 +244,258 @@ def check_k3(dev, ops, anchors):
         library_ms=None, bound=bound_ms(n_bytes, n_ops))
 
 
+def k4_inputs(b, tta, seed=0):
+    """Regressor outputs for K4 over b crops as numpy: pre-activations
+    [B',9,18] (every 7th crop saturated, so keypoints press against the
+    crop edge), logits [B',9] exactly representable in bfloat16 with exact
+    ties at the maximum (the same in a crop and its mirror), crop boxes
+    [b,4] in a 720p frame and detections [b,6] (every 5th a padded row
+    with score 0).  The card tests (tests/test_torch_port_kernels.py) and
+    the CPU parity tests use these inputs too."""
+    rng = np.random.RandomState(seed)
+    b2 = 2 * b if tta else b
+    pre = rng.normal(0.0, 2.0, (b2, 9, 18)).astype(np.float32)
+    pre[::7] *= 8.0
+    logits = rng.normal(0.0, 2.0, (b2, 9)).astype(np.float32)
+    logits = torch.from_numpy(logits).bfloat16().float().numpy()
+    group = np.arange(b2) % b % 3
+    logits[group == 0, 4] = logits[group == 0, 6] = 8.0
+    logits[group == 1, 2] = logits[group == 1, 7] = 9.0
+    w, h = K4_REFINE[:2]
+    x0 = rng.uniform(-20, w, b)
+    y0 = rng.uniform(-20, h, b)
+    boxes = np.stack([x0, y0, x0 + rng.uniform(0.5, 400, b),
+                      y0 + rng.uniform(0.5, 300, b)], -1)
+    boxes = np.clip(boxes, 0, [w, h, w, h]).astype(np.float32)
+    dets = np.zeros((b, 6), np.float32)
+    dets[:, :4] = boxes
+    dets[:, 4] = rng.uniform(0, 1, b)
+    dets[::5, 4] = 0.0
+    dets[:, 5] = rng.randint(0, 9, b)
+    return pre, logits, boxes, dets
+
+
+def compare_k4(out, ref, what, refine):
+    """Refine mode: boxes within 1e-4 px; pack mode: keypoints within 1e-6,
+    boxes, scores, labels and conf_mask exact."""
+    if refine:
+        e = max_err(out, ref)
+        print(f'{what}: max |kernel - plain| box {e:.3g} px (tol 1e-4)')
+        expect(e <= 1e-4, f'{what} disagrees')
+        return e
+    e = max_err(out[:, 6:24], ref[:, 6:24])
+    rest = [0, 1, 2, 3, 4, 5, 24, 25]
+    expect(torch.equal(out[:, rest], ref[:, rest]),
+           f'{what}: boxes, scores or labels differ')
+    print(f'{what}: max |kernel - plain| kp {e:.3g} (tol 1e-6), labels '
+          'equal')
+    expect(e <= 1e-6, f'{what} disagrees')
+    return e
+
+
+def profile_call(fn, calls=20):
+    """Device kernels (and copies) per call of ``fn`` and their summed
+    device ms per call, from ``torch.profiler`` over ``calls`` calls.  A
+    kernel far shorter than a launch shows its own time here, while
+    ``time_ms`` of back-to-back calls measures the host's dispatch.  A
+    profiler session now and then records no device activity; it is
+    repeated, and after three empty sessions both numbers are None."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return (len(events) / calls, sum(
+                e.time_range.elapsed_us() for e in events) / 1e3 / calls)
+    return None, None
+
+
+def check_k4(dev, ops):
+    head_epilogue, head_epilogue_plain = ops
+    err = 0.0
+    for tta in (False, True):
+        pre, logits, boxes, dets = (torch.from_numpy(a).to(dev)
+                                    for a in k4_inputs(128, tta, 4))
+        logits = logits.bfloat16()
+        for refine in (True, False):
+            kw = dict(tta_w=224 if tta else 0)
+            kw.update(dict(refine=K4_REFINE) if refine
+                      else dict(dets=dets, det_conf=0.5))
+            err = max(err, compare_k4(
+                head_epilogue(pre, logits, boxes, **kw),
+                head_epilogue_plain(pre, logits, boxes, **kw),
+                f'K4 B=128 tta={tta} {"refine" if refine else "pack"}',
+                refine))
+    # the serving path's last pass: TTA off, pack mode
+    pre, logits, boxes, dets = (torch.from_numpy(a).to(dev)
+                                for a in k4_inputs(128, False, 5))
+    logits = logits.bfloat16()
+    (n_k, dev_ms), (n_p, plain_dev_ms) = (
+        profile_call(lambda f=f: f(pre, logits, boxes, dets=dets))
+        for f in ops)
+    print(f'K4 per pass (torch.profiler): kernel {n_k} launch, '
+          f'{dev_ms} ms on the device; plain version {n_p} launches, '
+          f'{plain_dev_ms} ms')
+    return dict(
+        launches_per_pass=[n_k, n_p], device_ms=dev_ms,
+        plain_device_ms=plain_dev_ms,
+        err=err,
+        ms=time_ms(lambda: head_epilogue(pre, logits, boxes, dets=dets),
+                   200),
+        plain_ms=time_ms(lambda: head_epilogue_plain(pre, logits, boxes,
+                                                     dets=dets), 20),
+        library_ms=None, bound=bound_ms(*k4_work(
+            boxes.shape[0], logits.shape[1], logits.element_size())))
+
+
+def box_kps(center, half, rot=np.eye(3)):
+    """Objectron 9-keypoint box: centre, then the 8 corners in binary
+    ±e1±e2±e3 order."""
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                        for sz in (-1, 1)], float)
+    return np.concatenate([[center], corners * half @ rot.T + center])
+
+
+def rotation(angles):
+    cx, sx = np.cos(angles[0]), np.sin(angles[0])
+    cy, sy = np.cos(angles[1]), np.sin(angles[1])
+    cz, sz = np.cos(angles[2]), np.sin(angles[2])
+    return (np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+            @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+            @ np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]]))
+
+
+def k5_fuzz_pairs(n, seed=0):
+    """n pairs of random oriented boxes [n,9,3] x 2 (float32): random
+    rotations, sides 0.05-2, centres within 0.3 of the origin so most
+    pairs overlap."""
+    rng = np.random.RandomState(seed)
+
+    def one():
+        return box_kps(rng.uniform(-0.3, 0.3, 3),
+                       rng.uniform(0.05, 2.0, 3) / 2,
+                       rotation(rng.uniform(-np.pi, np.pi, 3)))
+
+    pairs = [(one(), one()) for _ in range(n)]
+    return (np.stack([p[0] for p in pairs]).astype(np.float32),
+            np.stack([p[1] for p in pairs]).astype(np.float32))
+
+
+def k5_exact_cases():
+    """(name, box, box, exact IoU) of the unit box against: itself, a half
+    shift, a 45° turn, a nested box, a disjoint box, a touching box and a
+    box with a NaN corner."""
+    half = np.array([.5, .5, .5])
+    unit = box_kps(np.zeros(3), half)
+    th = np.pi / 4
+    rot = np.array([[np.cos(th), -np.sin(th), 0],
+                    [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    inter = 2 * (np.sqrt(2) - 1)
+    bad = unit.copy()
+    bad[3] = np.nan
+    return [('self', unit, unit, 1.0),
+            ('half_shift', unit, box_kps(np.array([.5, 0, 0]), half), 1 / 3),
+            ('rot45', unit, box_kps(np.zeros(3), half, rot),
+             inter / (2 - inter)),
+            ('nested', unit, box_kps(np.zeros(3), half / 2), 0.125),
+            ('disjoint', unit, box_kps(np.array([5., 0, 0]), half), 0.0),
+            ('touching', unit, box_kps(np.array([1., 0, 0]), half), 0.0),
+            ('nan', bad, unit, 0.0)]
+
+
+def k4_work(b, n_classes, logit_bytes):
+    """Bytes and operations that K4 needs for b crops in pack mode without
+    TTA (the serving path's pass): the selected head's 18 pre-activations
+    of each crop (the other 8 heads are never read), every logit, the
+    boxes, the detections and the packed rows; a compare per logit and a
+    sigmoid per read pre-activation (negate, exp, add, reciprocal)."""
+    n_bytes = b * (18 * 4 + n_classes * logit_bytes + 16 + 24 + 26 * 4)
+    return n_bytes, b * (n_classes + 18 * 4)
+
+
+# K5's work besides the clip passes, per pair: box axes, determinants and
+# halfspaces of both boxes (2 x 182), the volumes (2), 12 face normals
+# (12 x 18), the 72 coincidence tolerances (36 x 9 with the normals' dot
+# product, 36 x 3 without) and the fan sums and quotients (42)
+K5_PAIR_OPS = 2 * 182 + 2 + 12 * 18 + 36 * 9 + 36 * 3 + 42
+
+
+def k5_work(a, b, box3d):
+    """Bytes and operations that K5 needs for these pairs, counted on this
+    data by running the plain version: each clip pass visits the polygon's
+    valid vertices (7 flops each: the plane distance and the test) and
+    computes an intersection at each crossing (12 flops); each clipped face
+    of n vertices has n - 2 fan triangles (15 flops each); plus
+    K5_PAIR_OPS per pair."""
+    seen = dict(visits=0, crossings=0, triangles=0)
+    clip, fan = box3d._clip, box3d._fan_volume
+
+    def counting_clip(poly, count, normal, offset, eps):
+        out, n_out = clip(poly, count, normal, offset, eps)
+        valid = torch.arange(poly.shape[1], device=poly.device) \
+            < count[:, None]
+        d = box3d._dot(poly, normal[:, None, :]) - offset[:, None]
+        inside = int(((d <= eps[:, None]) & valid).sum())
+        seen['visits'] += int(valid.sum())
+        seen['crossings'] += int(n_out.sum()) - inside
+        return out, n_out
+
+    def counting_fan(poly, count):
+        seen['triangles'] += int((count - 2).clamp(0, poly.shape[1] - 2)
+                                 .sum())
+        return fan(poly, count)
+
+    box3d._clip, box3d._fan_volume = counting_clip, counting_fan
+    try:
+        box3d.iou_oriented_boxes_plain(a, b)
+    finally:
+        box3d._clip, box3d._fan_volume = clip, fan
+    p = a.shape[0]
+    n_ops = (seen['visits'] * 7 + seen['crossings'] * 12
+             + seen['triangles'] * 15 + p * K5_PAIR_OPS)
+    return (a.numel() + b.numel() + p) * 4, n_ops
+
+
+def check_k5(dev, ops, box3d):
+    iou, iou_plain, iou_host = ops
+    err = 0.0
+    for p in (8, 128):
+        a, b = (torch.from_numpy(x).to(dev) for x in k5_fuzz_pairs(p, p))
+        e = max_err(iou(a, b), iou_plain(a, b))
+        print(f'K5 P={p}: max |kernel - plain| = {e:.3g} (tol 1e-5)')
+        expect(e <= 1e-5, f'K5 P={p} disagrees: {e}')
+        err = max(err, e)
+    for name, x, y, want in k5_exact_cases():
+        got = float(iou(torch.tensor(x, dtype=torch.float32, device=dev),
+                        torch.tensor(y, dtype=torch.float32, device=dev)))
+        print(f'K5 {name}: {got:.7f} (want {want})')
+        expect(abs(got - want) <= 1e-5, f'K5 {name}: {got} != {want}')
+    a, b = k5_fuzz_pairs(32, 2)
+    got = iou(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    host = np.array([iou_host(x, y) for x, y in zip(a, b)])
+    e_host = float(np.abs(got.cpu().numpy() - host).max())
+    print(f'K5 32 pairs: max |kernel - scipy| = {e_host:.3g} (tol 1e-4)')
+    expect(e_host <= 1e-4, f'K5 disagrees with scipy: {e_host}')
+    out = {}
+    for p, iters in ((128, 200), (8, 200)):
+        a, b = (torch.from_numpy(x).to(dev) for x in k5_fuzz_pairs(p, p))
+        out[p] = dict(
+            ms=time_ms(lambda: iou(a, b), iters),
+            device_ms=profile_call(lambda: iou(a, b))[1],
+            plain_ms=time_ms(lambda: iou_plain(a, b), 10),
+            bound=bound_ms(*k5_work(a, b, box3d)))
+        print(f'K5 P={p}: {out[p]["ms"]} ms per call back to back, '
+              f'{out[p]["device_ms"]} ms on the device')
+    return dict(err=err, host_err=e_host, library_ms=None, **out[128],
+                p8=out[8])
+
+
 def check_results(results, h, w):
     for r in results:
         expect(r['kp'].shape[1:] == (9, 2) and r['boxes'].shape[1] == 4,
@@ -257,15 +527,15 @@ def main_path(engine, wrappers, frames_np):
     expect(sum(len(r['scores']) for r in results) > 0, 'no detection at all')
     print('main path: infer_batch(16) + __call__ + 2x run_async: '
           f'{sum(len(r["scores"]) for r in results)} detections, launches '
-          f'K1/K2/K3 = {launches}')
+          f'K1/K2/K3/K4 = {launches}')
     for f, n in zip(wrappers, launches):
         expect(n > 0, f'{f.__name__} was never launched on the main path')
     return launches
 
 
 def path_intermediates(engine, frames_np, plain, norm):
-    """The path's own stage-1 outputs through the plain versions."""
-    resize_plain, crop_plain, decode_plain, crop = plain
+    """The path's own intermediates through the plain versions."""
+    resize_plain, crop_plain, decode_plain, crop, epi, epi_plain = plain
     frames = engine._upload(frames_np)
     h, w = FRAME[:2]
     det_in, logits, deltas, dets, boxes = engine._detect(
@@ -282,7 +552,12 @@ def path_intermediates(engine, frames_np, plain, norm):
     print(f'path K2: max |kernel - plain| = {e2:.3g} (tol '
           f'{2 ** -7 + 1e-4:.3g})')
     expect(e2 <= 2 ** -7 + 1e-4, 'path K2 disagrees')
-    return e1, e2, e3
+    pre, logits = engine._heads(frames, boxes)
+    flat, flat_dets = boxes.reshape(-1, 4), dets.reshape(-1, 6)
+    kw = dict(dets=flat_dets, det_conf=engine.cfg.det_conf)
+    e4 = compare_k4(epi(pre, logits, flat, **kw),
+                    epi_plain(pre, logits, flat, **kw), 'path K4', False)
+    return e1, e2, e3, e4
 
 
 def serving_times(engine, dev, iters):
@@ -316,6 +591,187 @@ def serving_times(engine, dev, iters):
     return out
 
 
+def eval_examples(n, seed, geometry):
+    """n synthetic Objectron examples (image, gt2d, gt3d, visibility,
+    plane): portrait uint8 frames of noise with a flat patch over each
+    object, 1–3 GT boxes 1–3 m in front of the default camera projected
+    through it, visibility 1, and a ground plane 1 m below the camera."""
+    rng = np.random.RandomState(seed)
+    h, w = EVAL_FRAME[:2]
+    cam = geometry.convert_camera_matrix_2_ndc(
+        geometry.get_default_camera_matrix())
+    plane = (np.array([0., -1., -2.], np.float32),
+             np.array([0., 1., 0.], np.float32))
+    out = []
+    for _ in range(n):
+        img = np.frombuffer(rng.bytes(int(np.prod(EVAL_FRAME))),
+                            np.uint8).reshape(EVAL_FRAME).copy()
+        gt2d, gt3d = [], []
+        for _ in range(rng.randint(1, 4)):
+            box = box_kps(np.r_[rng.uniform(-0.3, 0.3, 2),
+                                rng.uniform(-3, -1)],
+                          rng.uniform(0.1, 0.4, 3),
+                          rotation(rng.uniform(-np.pi, np.pi, 3)))
+            uv = geometry.project_3d_points(box, cam)
+            xy = np.stack([(uv[:, 1] + 1) / 2, (uv[:, 0] + 1) / 2], -1)
+            x0, y0 = np.clip(xy.min(0) * [w, h], 0, [w, h]).astype(int)
+            x1, y1 = np.clip(xy.max(0) * [w, h], 0, [w, h]).astype(int)
+            img[y0:y1, x0:x1] = rng.randint(0, 256, 3)
+            gt2d.append(xy)
+            gt3d.append(box)
+        out.append((img, np.asarray(gt2d, np.float32),
+                    np.asarray(gt3d, np.float32),
+                    np.ones(len(gt2d), np.float32), plane))
+    return out
+
+
+def check_report(text, evaluator, what):
+    """Every number of the report finite, the mean IoU in [0, 1], and
+    something matched."""
+    for line in text.splitlines()[1:]:
+        if ': ' not in line:
+            continue
+        vals = [float(v) for v in re.split(r'[,\s]+',
+                                           line.split(': ', 1)[1]) if v]
+        expect(all(np.isfinite(vals)), f'{what}: non-finite in {line!r}')
+        if line.startswith('Mean 3D IoU'):
+            expect(0.0 <= vals[0] <= 1.0, f'{what}: mean IoU {vals[0]}')
+    expect(evaluator._matched > 0, f'{what}: nothing matched')
+
+
+def eval_path(dev, wrappers):
+    """Phase 5: the evaluation path at full width; returns its numbers."""
+    from tpudet3d_torch.eval import protocol
+    from tpudet3d_torch.ops import geometry
+    from tpudet3d_torch.ops.box3d import iou_oriented_boxes_plain
+    from tpudet3d_torch.tools.objectron_eval import (engine_from_args,
+                                                     evaluate_category,
+                                                     parse_args)
+
+    class Recording(protocol.ObjectronProtocolEvaluator):
+        """Keeps every example and every K5 call's pairs with its IoUs."""
+
+        def __init__(self):
+            super().__init__(dev)
+            self.examples, self.calls = [], []
+
+        def _ious(self, pairs):
+            out = super()._ious(pairs)
+            if pairs:
+                self.calls.append((np.asarray(pairs, np.float32), out))
+            return out
+
+        def evaluate_example(self, *args, **kw):
+            self.examples.append((args, kw))
+            super().evaluate_example(*args, **kw)
+
+    data = {cls: eval_examples(EVAL_EXAMPLES, seed, geometry)
+            for seed, cls in enumerate(EVAL_CLASSES, 5)}
+    engines = []
+    for name, flags in (('default', ['--det_tresh', '0']),
+                        ('recall', ['--preset', 'recall'])):
+        args = parse_args(['--eval_data', '-', *flags])
+        engine = engine_from_args(args)        # the card, full width
+        engine.infer_batch(np.stack([e[0] for e in
+                                     data[EVAL_CLASSES[0]][:args.batch]]))
+        engines.append((name, args, engine))
+    geometry.lift_2d_batched(torch.rand((8, 9, 2), device=dev),
+                             portrait=True)                  # warm-up
+    torch.cuda.synchronize()
+
+    for f in wrappers:
+        f.launches = 0
+    runs = []
+    for name, args, engine in engines:
+        for cls in EVAL_CLASSES:
+            ev, timings = Recording(), {}
+            t0 = time.perf_counter()
+            evaluate_category(engine, iter(data[cls]), args.batch,
+                              args.vis_thresh, evaluator=ev, timings=timings)
+            timings['wall'] = time.perf_counter() - t0
+            runs.append((name, cls, ev, timings))
+    torch.cuda.synchronize()
+    launches = [f.launches for f in wrappers]
+    print(f'evaluation path: 2 settings x {len(EVAL_CLASSES)} categories x '
+          f'{EVAL_EXAMPLES} examples of {EVAL_FRAME[0]}x{EVAL_FRAME[1]}, '
+          f'launches K1/K2/K3/K4/K5 = {launches}')
+    for f, n in zip(wrappers, launches):
+        expect(n > 0, f'{f.__name__} was never launched on the evaluation '
+               'path')
+
+    iou_err, n_pairs, pred_kp = 0.0, 0, []
+    out = {'launches': launches}
+    for name, cls, ev, t in runs:
+        what = f'eval {name} {cls}'
+        buf = io.StringIO()
+        ev.write_report(cls, buf)
+        text = buf.getvalue()
+        check_report(text, ev, what)
+        # the same lifted predictions re-scored with the plain K5 on the card
+        for pairs, got in ev.calls:
+            kp = torch.from_numpy(pairs).to(dev)
+            iou_err = max(iou_err, max_err(
+                torch.from_numpy(got),
+                iou_oriented_boxes_plain(kp[:, 0], kp[:, 1]).cpu()))
+            n_pairs += len(pairs)
+        again = protocol.ObjectronProtocolEvaluator(dev)
+        kernel, protocol.iou_oriented_boxes = (protocol.iou_oriented_boxes,
+                                               iou_oriented_boxes_plain)
+        try:
+            for args, kw in ev.examples:
+                again.evaluate_example(*args, **kw)
+        finally:
+            protocol.iou_oriented_boxes = kernel
+        again.finalize()
+        buf = io.StringIO()
+        again.write_report(cls, buf)
+        expect(buf.getvalue() == text, f'{what}: the report under the plain '
+               'K5 differs')
+        pred_kp += [np.asarray(a[0], np.float32).reshape(-1, 9, 2)
+                    for a, _ in ev.examples if len(a[0])]
+        print(f'{what}: {text.splitlines()[0]}, '
+              + ', '.join(line for line in text.splitlines()[1:5]))
+    print(f'evaluation path K5: {n_pairs} pairs, max |kernel - plain| '
+          f'{iou_err:.3g} (tol 1e-5); reports identical under the plain K5')
+    expect(iou_err <= 1e-5, f'K5 on the evaluation path disagrees: {iou_err}')
+    # the card's float32 lift against the float64 host lift: on the GT
+    # keypoints (exact box projections, a well-separated null vector) and
+    # on the path's predictions (a random network's keypoints, where the
+    # smallest eigenvalues can nearly coincide)
+    lift = {}
+    for name, kp in (('gt', np.concatenate([e[1] for d in data.values()
+                                            for e in d])),
+                     ('pred', np.concatenate(pred_kp))):
+        card = geometry.lift_2d_batched(torch.from_numpy(kp).to(dev),
+                                        portrait=True).cpu().numpy()
+        host = geometry._lift_host(kp.astype(np.float64),
+                                   geometry.get_default_camera_matrix(), True)
+        expect(np.all(np.isfinite(card)), f'non-finite lift of {name}')
+        err = np.abs(card - host).max(axis=(1, 2))
+        lift[name] = dict(sets=len(kp), max=float(err.max()),
+                          median=float(np.median(err)),
+                          share_within_1e3=float((err <= 1e-3).mean()))
+        print(f'evaluation path lift of {name} keypoints: {len(kp)} sets, '
+              f'|card f32 - host f64| max {err.max():.3g}, median '
+              f'{np.median(err):.3g}, {lift[name]["share_within_1e3"]:.3f} '
+              'of the sets within 1e-3')
+    expect(lift['gt']['max'] <= LIFT_TOL, 'the lift of exact projections '
+           f'is {lift["gt"]["max"]} from the float64 lift (tol {LIFT_TOL})')
+    out.update(k5_err=iou_err, lift=lift)
+    for name in ('default', 'recall'):
+        sel = [(ev, t) for n, _, ev, t in runs if n == name]
+        wall = sum(t['wall'] for _, t in sel)
+        k5 = sum(ev.iou_seconds for ev, _ in sel)
+        split = dict(engine_s=sum(t['engine'] for _, t in sel),
+                     lift_s=sum(t['lift'] for _, t in sel), k5_s=k5,
+                     host_protocol_s=sum(t['protocol'] for _, t in sel) - k5)
+        eps = len(EVAL_CLASSES) * EVAL_EXAMPLES / wall
+        out[name] = dict(examples_per_s=eps, wall_s=wall, **split)
+        print(f'evaluation {name}: {eps:.2f} examples/s, wall {wall:.3f} s: '
+              + ', '.join(f'{k} {v:.3f}' for k, v in split.items()))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -332,10 +788,14 @@ def run(dev, out_path, iters=20):
                                        decode_detections_plain)
     from tpudet3d_torch.infer import build_engine
     from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
+    from tpudet3d_torch.infer.epilogue import (head_epilogue,
+                                               head_epilogue_plain)
     from tpudet3d_torch.kernels.build import build, library
+    from tpudet3d_torch.ops import box3d
     from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                     resize_bilinear, resize_bilinear_plain,
                                     resize_weights)
+    iou = box3d.iou_oriented_boxes
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     norm = (REG_SCALE, REG_OFFSET)
@@ -361,51 +821,78 @@ def run(dev, out_path, iters=20):
     anchors = torch.from_numpy(generate_anchors()).to(dev)
     k3 = check_k3(dev, (decode_detections, decode_detections_plain),
                   anchors)
+    k4 = check_k4(dev, (head_epilogue, head_epilogue_plain))
+    k5 = check_k5(dev, (iou, box3d.iou_oriented_boxes_plain,
+                        box3d.iou_single_host), box3d)
     del frames
 
     # 3. the serving path at full width
     engine = build_engine(det_conf=0.0, device=dev)
     frames_np = np.random.RandomState(1).randint(0, 256, (16, *FRAME)) \
         .astype(np.uint8)
-    wrappers = (resize_bilinear, crop_and_resize, decode_detections)
+    wrappers = (resize_bilinear, crop_and_resize, decode_detections,
+                head_epilogue)
     launches = main_path(engine, wrappers, frames_np)
-    e1, e2, e3 = path_intermediates(
+    e1, e2, e3, e4 = path_intermediates(
         engine, frames_np, (resize_bilinear_plain, crop_and_resize_plain,
-                            decode_detections_plain, crop_and_resize), norm)
+                            decode_detections_plain, crop_and_resize,
+                            head_epilogue, head_epilogue_plain), norm)
 
     # 4. serving times
     times = serving_times(engine, dev, iters)
     print(f'serving on {gpu}: ' + ', '.join(
         f'{k} {v:.2f}' for k, v in times.items() if not k.endswith('spread')))
+    del engine
+
+    # 5. the evaluation path at full width
+    evaluation = eval_path(dev, wrappers + (iou,))
 
     kernels = []
-    for (name, src, replaces, m, err), n in zip((
+    for (name, src, replaces, m, err), n, n_eval in zip((
             ('K1 preprocess_resize', 'tpudet3d_torch/kernels/csrc/resize.cu',
              'tpudet3d/ops/image.py:19', k1, max(k1['err'], e1)),
             ('K2 crop_resize_normalize', 'tpudet3d_torch/kernels/csrc/crop.cu',
              'tpudet3d/ops/image.py:86', k2, max(k2['err'], e2)),
             ('K3 decode_nms', 'tpudet3d_torch/kernels/csrc/decode_nms.cu',
-             'tpudet3d/detect/nms.py:86', k3, max(k3['err'], e3))),
-            launches):
+             'tpudet3d/detect/nms.py:86', k3, max(k3['err'], e3)),
+            ('K4 head_epilogue',
+             'tpudet3d_torch/kernels/csrc/head_epilogue.cu',
+             'tpudet3d/infer/engine.py:270', k4, max(k4['err'], e4)),
+            ('K5 iou_oriented_boxes',
+             'tpudet3d_torch/kernels/csrc/box3d_iou.cu',
+             'tpudet3d/ops/box3d.py:161', k5,
+             max(k5['err'], evaluation['k5_err']))),
+            launches + [evaluation['launches'][4]],
+            evaluation['launches']):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': src,
             'replaces': replaces, 'launches': n, 'max_abs_err': err,
             'ms': m['ms'], 'plain_ms': m['plain_ms'],
             'bound_ms': m['bound'][0], 'bound_by': m['bound'][1],
-            'library_ms': m['library_ms']})
+            'library_ms': m['library_ms'], 'launches_eval': n_eval})
+    kernels[3].update(launches_per_pass_kernel_plain=k4['launches_per_pass'],
+                      device_ms=k4['device_ms'],
+                      plain_device_ms=k4['plain_device_ms'])
+    kernels[4].update(device_ms=k5['device_ms'], ms_p8=k5['p8']['ms'],
+                      device_ms_p8=k5['p8']['device_ms'],
+                      plain_ms_p8=k5['p8']['plain_ms'],
+                      bound_ms_p8=k5['p8']['bound'][0],
+                      max_abs_err_scipy=k5['host_err'])
     for k in kernels:
         lib = ('none' if k['library_ms'] is None
                else f"{k['library_ms']:.4f} ms")
         print(f"{k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {lib}, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']}), {k['launches']} launches on the main "
-              f'path, max |kernel - plain| {k["max_abs_err"]:.3g}')
+              f"({k['bound_by']}), {k['launches']} launches on its main "
+              f"path ({k['launches_eval']} on the evaluation path), max "
+              f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
     if out_path:
         with open(out_path, 'w') as f:
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
-                       'serving': times, 'torch': torch.__version__,
+                       'serving': times, 'evaluation': evaluation,
+                       'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

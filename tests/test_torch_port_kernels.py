@@ -6,7 +6,14 @@ machine with the card it runs without the repo's conftest:
 
 Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]); K2 f32 1e-4
 (normalised values, fused multiply-adds in the kernel); K3 scores 1e-6 and
-boxes 1e-3 px (only the box-vote sums are ordered differently).
+boxes 1e-3 px (only the box-vote sums are ordered differently); K4 kp 1e-6,
+boxes 1e-4 px, labels exact; K5 1e-5 (kernel and plain version compute the
+same float32 operations in the same order).
+
+The K4 and K5 inputs come from chip_smoke.py, so these tests, the card
+smoke and the CPU parity tests (tests/test_torch_port_eval.py,
+tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
+root, which puts chip_smoke.py on the import path.
 """
 
 import pytest
@@ -15,8 +22,12 @@ import torch
 from tpudet3d_torch.detect import (decode_detections,
                                    decode_detections_plain, generate_anchors)
 from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
+from tpudet3d_torch.infer.epilogue import head_epilogue, head_epilogue_plain
 from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
+from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
+                                      iou_oriented_boxes_plain)
+from chip_smoke import K4_REFINE, k4_inputs, k5_exact_cases, k5_fuzz_pairs
 from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
                                frame_batch, random_boxes)
 
@@ -62,3 +73,46 @@ def test_k3_kernel_matches_plain(cuda, setting):
     out = decode_detections(logits, deltas, anchors, **kw)
     ref = decode_detections_plain(logits, deltas, anchors, **kw)
     assert_dets_match(out.cpu().numpy(), ref.cpu().numpy(), box_atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('logits_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('mode', ['refine', 'pack'])
+@pytest.mark.parametrize('tta', [False, True])
+def test_k4_kernel_matches_plain(cuda, tta, mode, logits_dtype):
+    pre, logits, boxes, dets = (torch.from_numpy(a).to(cuda)
+                                for a in k4_inputs(128, tta))
+    logits = logits.to(logits_dtype)
+    kw = dict(tta_w=224 if tta else 0, det_conf=0.5)
+    if mode == 'refine':
+        kw['refine'] = K4_REFINE
+    else:
+        kw['dets'] = dets
+    out = head_epilogue(pre, logits, boxes, **kw)
+    ref = head_epilogue_plain(pre, logits, boxes, **kw)
+    if mode == 'refine':
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    else:
+        torch.testing.assert_close(out[:, 6:24], ref[:, 6:24], rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(out[:, [0, 1, 2, 3, 4, 5, 24, 25]],
+                                   ref[:, [0, 1, 2, 3, 4, 5, 24, 25]],
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p', [8, 128])
+def test_k5_kernel_matches_plain(cuda, p):
+    a, b = (torch.from_numpy(x).to(cuda) for x in k5_fuzz_pairs(p, seed=p))
+    out = iou_oriented_boxes(a, b)
+    torch.testing.assert_close(out, iou_oriented_boxes_plain(a, b), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [c[0] for c in k5_exact_cases()])
+def test_k5_kernel_exact_cases(cuda, case):
+    _, b1, b2, want = next(c for c in k5_exact_cases() if c[0] == case)
+    a = torch.tensor(b1, dtype=torch.float32, device=cuda)
+    b = torch.tensor(b2, dtype=torch.float32, device=cuda)
+    assert abs(float(iou_oriented_boxes(a, b)) - want) < 1e-5

@@ -2,10 +2,12 @@
 
 One batched pass per call: preprocess (K1) → SSD forward → decode + NMS
 (K3) → box scaling, expand, margin and clip → crop-resize-normalize (K2) →
-multi-head regressor → per-crop head select → optional refine passes →
-``[N, max_det, 26]`` packed rows.  Every stage runs over the whole batch:
-one detector forward over N frames, one K3 launch over N images, one K2
-launch over N·max_det boxes and one regressor forward over every crop.
+multi-head regressor → head epilogue (K4: sigmoid, TTA average, argmax,
+head select, then the next pass's boxes or the packed rows) → optional
+refine passes → ``[N, max_det, 26]`` packed rows.  Every stage runs over
+the whole batch: one detector forward over N frames, one K3 launch over N
+images, and per regress pass one K2 launch over N·max_det boxes, one
+regressor forward over every crop and one K4 launch.
 All ``max_det`` rows are always processed (padded rows carry score 0), as
 the JAX program's fixed shapes do, and nothing on the path waits for the
 device until the caller reads the result.
@@ -25,6 +27,7 @@ from ..core.device import resolve_device
 from ..detect.anchors import INPUT_SIZE, generate_anchors
 from ..detect.nms import decode_detections
 from ..ops.image import crop_and_resize, resize_bilinear
+from .epilogue import head_epilogue, refine_boxes, tta_flip_average
 
 __all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
            'tta_flip_average', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
@@ -46,41 +49,6 @@ def _reg_norm():
 
 
 REG_SCALE, REG_OFFSET = _reg_norm()
-
-
-def tta_flip_average(all_kp, cls_logits, k, crop_w):
-    """Merge a doubled-batch regressor output (originals ++ mirrored crops)
-    into averaged predictions for the k originals.  ``all_kp`` is
-    ``[heads, 2k, 9, 2]`` normalised by the crop size; the mirror-back of x
-    is ``(1 - 1/W) - x``.  Keypoint indices are not re-permuted."""
-    flip_c = 1.0 - 1.0 / float(crop_w)
-    kp_m = all_kp[:, k:].clone()
-    kp_m[..., 0] = flip_c - kp_m[..., 0]
-    return (0.5 * (all_kp[:, :k] + kp_m),
-            0.5 * (cls_logits[:k] + cls_logits[k:]))
-
-
-def refine_boxes(kp, boxes, frame_wh, margin_px, edge_grow, eps=0.015):
-    """Next-pass crop boxes from pass-N keypoints.
-
-    kp ``[...,9,2]`` normalised to each box; boxes ``[...,4]`` xyxy px;
-    frame_wh ``(w, h)``.  Box = predicted keypoint extent + margin; a side
-    whose keypoints saturate at the crop edge grows by ``edge_grow``·box
-    side instead."""
-    w, h = frame_wh
-    wh = boxes[..., 2:4] - boxes[..., 0:2]
-    kp_px = kp * wh[..., None, :] + boxes[..., None, 0:2]
-    rm = float(np.float32(margin_px))
-    grow = edge_grow * wh
-    pad_lo = torch.where(kp.amin(-2) <= eps, grow.clamp(min=rm), rm)
-    pad_hi = torch.where(kp.amax(-2) >= 1.0 - eps, grow.clamp(min=rm), rm)
-    lo = kp_px.amin(-2) - pad_lo
-    hi = kp_px.amax(-2) + pad_hi
-    lo = torch.stack([lo[..., 0].clamp(0, w - 1), lo[..., 1].clamp(0, h - 1)],
-                     -1)
-    hi = torch.stack([hi[..., 0].clamp(0, w), hi[..., 1].clamp(0, h)], -1)
-    hi = torch.maximum(hi, lo + 1.0)       # degenerate-extent guard
-    return torch.cat([lo, hi], dim=-1)
 
 
 @dataclass
@@ -169,22 +137,17 @@ class TwoStageEngine:
             raise NotImplementedError(
                 'int8 serving (infer/quant.py) is not ported yet')
 
-    def _regress(self, frames, boxes):
-        """boxes ``[N,M,4]`` → kp ``[N,M,9,2]``, labels ``[N,M]``."""
+    def _heads(self, frames, boxes):
+        """Crops of boxes ``[N,M,4]`` through the regressor: the heads'
+        pre-activations ``[B',9,18]`` and logits ``[B',C]``, B' = N·M (2·N·M
+        with TTA: originals, then mirrors)."""
         cfg = self.cfg
-        n, m = boxes.shape[:2]
         crops = crop_and_resize(frames, boxes.contiguous(), cfg.crop_size,
                                 reverse_channels=cfg.input_is_bgr,
                                 scale=REG_SCALE, offset=REG_OFFSET,
                                 mirror=cfg.tta_flip,
                                 dtype=self.reg_model.dtype)
-        all_kp, cls_logits = self.reg_model(crops)
-        if cfg.tta_flip:
-            all_kp, cls_logits = tta_flip_average(all_kp, cls_logits, n * m,
-                                                  cfg.crop_size[1])
-        labels = cls_logits.argmax(-1)                             # [N*M]
-        kp = all_kp[labels, torch.arange(n * m, device=labels.device)]
-        return kp.reshape(n, m, 9, 2), labels.reshape(n, m)
+        return self.reg_model(crops, pre_activation=True)
 
     @torch.no_grad()
     def _detect(self, frames, h, w, margin):
@@ -220,19 +183,18 @@ class TwoStageEngine:
         ``[N, max_det, 26]`` float32 on the device."""
         cfg = self.cfg
         _, _, _, dets, boxes = self._detect(frames, h, w, margin)
-        scores = dets[..., 4]
-        det_labels = dets[..., 5]
-        kp, reg_labels = self._regress(frames, boxes)
+        n, md = boxes.shape[:2]
+        tta_w = cfg.crop_size[1] if cfg.tta_flip else 0
         for _ in range(int(cfg.refine_passes)):
-            boxes = refine_boxes(kp, boxes, (w, h), refine_margin,
-                                 cfg.refine_edge_grow)
-            kp, reg_labels = self._regress(frames, boxes)
-        conf_mask = scores > cfg.det_conf
-        n, md = scores.shape
-        return torch.cat([
-            boxes, scores[..., None], det_labels[..., None],
-            kp.reshape(n, md, 18), reg_labels.float()[..., None],
-            conf_mask.float()[..., None]], dim=-1)
+            pre, logits = self._heads(frames, boxes)
+            boxes = head_epilogue(
+                pre, logits, boxes.reshape(n * md, 4), tta_w,
+                refine=(w, h, refine_margin, cfg.refine_edge_grow)) \
+                .reshape(n, md, 4)
+        pre, logits = self._heads(frames, boxes)
+        return head_epilogue(pre, logits, boxes.reshape(n * md, 4), tta_w,
+                             dets=dets.reshape(n * md, 6),
+                             det_conf=cfg.det_conf).reshape(n, md, 26)
 
     def _pipeline(self, frame, h, w, margin=None, refine_margin=None):
         """frame ``[H,W,3]`` uint8 on the device → packed ``[max_det, 26]``."""

@@ -43,6 +43,9 @@ SIGNATURES = {
                            _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
     'tpd_decode_nms': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _I, _P),
+    'tpd_head_epilogue': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F,
+                          _F, _F, _F, _F, _F, _I, _P),
+    'tpd_box3d_iou': (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,11 +1,14 @@
 """Multi-head 3D-vertex regressor (counterpart of
 ``tpudet3d/models/wrapper.py``), export mode only.
 
-All 9 per-class heads are one ``[9, C, 18]`` tensor, so one einsum computes
+All 9 per-class heads are one ``[9, C, 18]`` tensor, so one matmul computes
 every head for every sample.  ``forward`` returns the export convention of
 the JAX module's ``export=True``: sigmoid keypoints for all heads as
-``[9, B, 9, 2]`` plus class logits ``[B, num_classes]``.  The training
-branch (GT-class head selection) belongs to the training slice.
+``[9, B, 9, 2]`` plus class logits ``[B, num_classes]``.  With
+``pre_activation=True`` it returns the heads before the sigmoid,
+``[B, 9, 18]`` float32 with the bias added, plus the same logits: the
+serving engine finishes them with kernel K4 (``infer/epilogue.py``).  The
+training branch (GT-class head selection) belongs to the training slice.
 """
 
 import math
@@ -22,8 +25,8 @@ MAX_CLASSES = 9
 
 class MultiHeadRegressor(nn.Module):
     """``forward(x)``: NHWC crops ``[B,h,w,3]`` → (kp, logits).  ``dtype`` is
-    the compute dtype of the backbone and of ``cls_fc``; the head einsum
-    runs in float32, as in the JAX module."""
+    the compute dtype of the backbone and of ``cls_fc``; the head matmul
+    runs in float32, as the JAX module's einsum does."""
 
     def __init__(self, backbone, num_classes=9, num_points=18,
                  pooling_mode='avg', dtype=torch.float32):
@@ -48,18 +51,24 @@ class MultiHeadRegressor(nn.Module):
         self.head_kernel.uniform_(-limit, limit, generator=generator)
         self.head_bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, pre_activation=False):
         x = x.to(self.dtype).permute(0, 3, 1, 2)    # channels_last view
         feats = self.backbone.features(x)
         pooled = self.backbone.head(global_pool(feats, self.pooling_mode))
         pooled = pooled.float()
-        all_kp = torch.einsum('bc,hcp->bhp', pooled, self.head_kernel) \
-            + self.head_bias
-        b = x.shape[0]
-        kp = torch.sigmoid(all_kp).transpose(0, 1).reshape(
-            MAX_CLASSES, b, self.num_points // 2, 2)
+        b, c = pooled.shape
+        # every head in one matmul with the bias added, straight into the
+        # [B, 9, 18] layout (the [9, C, 18] kernel is copied to [C, 9·18])
+        all_kp = torch.addmm(
+            self.head_bias.reshape(-1), pooled,
+            self.head_kernel.permute(1, 0, 2).reshape(c, -1)).view(
+            b, MAX_CLASSES, self.num_points)
         if self.num_classes > 1:
             logits = linear(pooled.to(self.dtype), self.cls_fc)
         else:
             logits = torch.zeros((b,), dtype=pooled.dtype, device=x.device)
+        if pre_activation:
+            return all_kp, logits
+        kp = torch.sigmoid(all_kp).transpose(0, 1).reshape(
+            MAX_CLASSES, b, self.num_points // 2, 2)
         return kp, logits

@@ -9,7 +9,8 @@ first timed alone and then under ``torch.profiler``, and prints for each
 batch: wall time per call (unprofiled), device busy time per call (the sum
 of kernel times; one stream, so kernels do not overlap), the device's idle
 share (1 - busy / unprofiled wall), kernel launches per call, peak device
-memory, and device time by kernel group and by kernel.  Needs CUDA.
+memory, and device time by kernel group and by kernel; ``--out`` also gets
+the launches per call of every kernel by name.  Needs CUDA.
 """
 
 import argparse
@@ -29,6 +30,7 @@ GROUPS = (
     ('K1 resize', ('resize_bilinear_u8_kernel',)),
     ('K2 crop', ('crop_resize_u8_kernel',)),
     ('K3 decode_nms', ('class_nms_kernel', 'merge_kernel')),
+    ('K4 head_epilogue', ('head_epilogue_kernel',)),
     ('convolution', ('conv', 'xmma', 'cudnn', 'implicit', 'depthwise',
                      'winograd', 'fprop', 'sm90', 'nhwc')),
     ('matmul', ('gemm', 'cutlass', 'cublas')),
@@ -95,6 +97,8 @@ def profile_batch(engine, batch, steps):
         'group_launches_per_call': {k: v[1] for k, v in groups.items()},
         'top_kernels_ms_per_call': [(name[:120], t / steps, n / steps)
                                     for name, (t, n) in top],
+        'launches_by_kernel_per_call': {
+            name: n / steps for name, (_, n) in sorted(kernels.items())},
     }
 
 
