@@ -6,13 +6,15 @@ Phases, each fatal on failure:
 
 1. Build the CUDA kernels from ``tpudet3d_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   paths' shapes (K1 resize at N=1 and 16 of 720p, K2 crop on 128 boxes
+   paths' shapes (K1 resize at N=1 and 16 of 720p and on every shape of
+   ``K1_CASES``, K2 crop on 128 boxes
    with TTA off and on, K3 decode+NMS at N=16, A=2044, C=9, K=32 in the
    greedy, soft-NMS and box-vote settings, K4 head epilogue on 128 crops
    with TTA off and on in refine and pack mode with bf16 logits that carry
    exact ties, K5 oriented-box IoU at P=8 and 128 on random boxes and on
    exact cases, and against scipy on 32 pairs) and time kernel, plain
-   version and, where one exists, the PyTorch library call.
+   version and, where one exists, the PyTorch library call (K1 also with
+   a cold L2 and at N=1).
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
@@ -65,16 +67,8 @@ def expect(cond, msg):
 def time_ms(fn, iters):
     """Mean device time of ``fn`` over back-to-back calls (CUDA events,
     after one warm-up call; the L2 cache is not flushed)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from tpudet3d_torch.tools.k1_bench import cycle_ms
+    return cycle_ms([fn], iters)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -106,34 +100,59 @@ def engine_like_boxes(n, k, h, w, seed):
     return np.clip(b, 0, [w, h, w, h]).astype(np.float32)
 
 
+# K1's shapes on the port's paths, resized to 300²: (name, (H, W), batch,
+# frames dropped from the front).  720p serving, 1280×720 portrait
+# evaluation, host_downscale 2 and 3, a batch slice frames[1:] whose base
+# and rows are not 16-byte aligned, and an upscale.
+K1_CASES = (('720p', (720, 1280), 2, 0), ('portrait', (1280, 720), 2, 0),
+            ('360p', (360, 640), 2, 0), ('240p', (240, 426), 2, 0),
+            ('slice', (239, 425), 3, 1), ('upscale', (100, 150), 2, 0))
+K1_TOLS = ((torch.bfloat16, 2 ** -8), (torch.float32, 1e-5))
+
+
+def k1_frames(case, dev, seed=0):
+    """The uint8 frames of a K1_CASES entry on ``dev``, sliced there."""
+    _, hw, n, skip = next(c for c in K1_CASES if c[0] == case)
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (n, *hw, 3)).astype(np.uint8)
+    return torch.from_numpy(frames).to(dev)[skip:]
+
+
 def check_k1(dev, frames, ops):
+    """K1 against its plain version at N=1 and 16 of 720p and on every
+    K1_CASES shape; times at batch 16 of 720p → 300² bf16, warm and with a
+    cold L2 (k1_bench.k1_times), and F.interpolate's."""
+    from tpudet3d_torch.tools.k1_bench import k1_times, library_times
     resize_bilinear, resize_bilinear_plain, resize_weights = ops
     err = 0.0
-    for n in (1, 16):
-        f = frames[:n]
+    cases = [(f'720p N={n}', frames[:n]) for n in (1, 16)] + [
+        (c[0], k1_frames(c[0], dev)) for c in K1_CASES]
+    for name, f in cases:
         ref = resize_bilinear_plain(f, (300, 300), True, 1 / 255.0)
-        for dtype, tol in ((torch.bfloat16, 2 ** -8), (torch.float32, 1e-5)):
+        for dtype, tol in K1_TOLS:
             e = max_err(resize_bilinear(f, (300, 300), True, 1 / 255.0,
                                         dtype), ref)
-            print(f'K1 N={n} {dtype}: max |kernel - plain| = {e:.3g} '
-                  f'(tol {tol:.3g})')
-            expect(e <= tol, f'K1 N={n} {dtype} disagrees: {e}')
+            print(f'K1 {name} {tuple(f.shape)} {dtype}: max |kernel - '
+                  f'plain| = {e:.3g} (tol {tol:.3g})')
+            expect(e <= tol, f'K1 {name} {dtype} disagrees: {e}')
             err = max(err, e)
-    run = lambda: resize_bilinear(frames, (300, 300), True, 1 / 255.0,  # noqa
-                                  torch.bfloat16)
-    x_f32 = frames.permute(0, 3, 1, 2).float().contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [frames] + [torch.randint(0, 256, frames.shape,
+                                        dtype=torch.uint8, device=dev,
+                                        generator=gen) for _ in range(2)]
+    times = k1_times(resize_bilinear, batches)
+    times.update(library_times(batches))
     taps_y = (resize_weights(FRAME[0], 300, dev) > 0).sum()
     taps_x = (resize_weights(FRAME[1], 300, dev) > 0).sum()
     n = frames.shape[0]
     n_bytes = frames.numel() + n * 300 * 300 * 3 * 2
     n_ops = 2 * 3 * n * int(taps_y) * int(taps_x)
+    print('K1 batch 16 of 720p bf16: ' + ', '.join(
+        f'{k} {v}' for k, v in times.items()))
     return dict(
-        err=err, ms=time_ms(run, 50),
+        err=err, **times,
         plain_ms=time_ms(lambda: resize_bilinear_plain(
             frames, (300, 300), True, 1 / 255.0, torch.bfloat16), 5),
-        library_ms=time_ms(lambda: F.interpolate(
-            x_f32, size=(300, 300), mode='bilinear', antialias=True,
-            align_corners=False), 20),
         bound=bound_ms(n_bytes, n_ops))
 
 
@@ -870,6 +889,9 @@ def run(dev, out_path, iters=20):
             'ms': m['ms'], 'plain_ms': m['plain_ms'],
             'bound_ms': m['bound'][0], 'bound_by': m['bound'][1],
             'library_ms': m['library_ms'], 'launches_eval': n_eval})
+    kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
+                      device_ms_n1=k1['device_ms_n1'],
+                      library_ms_cold=k1['library_ms_cold'])
     kernels[3].update(launches_per_pass_kernel_plain=k4['launches_per_pass'],
                       device_ms=k4['device_ms'],
                       plain_device_ms=k4['plain_device_ms'])

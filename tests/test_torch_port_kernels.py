@@ -4,14 +4,15 @@ machine with the card it runs without the repo's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
-Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]); K2 f32 1e-4
-(normalised values, fused multiply-adds in the kernel); K3 scores 1e-6 and
-boxes 1e-3 px (only the box-vote sums are ordered differently); K4 kp 1e-6,
-boxes 1e-4 px, labels exact; K5 1e-5 (kernel and plain version compute the
-same float32 operations in the same order).
+Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]), on every shape
+the port feeds it (chip_smoke.K1_CASES); K2 f32 1e-4 (normalised values,
+fused multiply-adds in the kernel); K3 scores 1e-6 and boxes 1e-3 px (only
+the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
+labels exact; K5 1e-5 (kernel and plain version compute the same float32
+operations in the same order).
 
-The K4 and K5 inputs come from chip_smoke.py, so these tests, the card
-smoke and the CPU parity tests (tests/test_torch_port_eval.py,
+The K1 shapes and the K4 and K5 inputs come from chip_smoke.py, so these
+tests, the card smoke and the CPU parity tests (tests/test_torch_port_eval.py,
 tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
 root, which puts chip_smoke.py on the import path.
 """
@@ -27,7 +28,8 @@ from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
-from chip_smoke import K4_REFINE, k4_inputs, k5_exact_cases, k5_fuzz_pairs
+from chip_smoke import (K1_CASES, K1_TOLS, K4_REFINE, k1_frames, k4_inputs,
+                        k5_exact_cases, k5_fuzz_pairs)
 from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
                                frame_batch, random_boxes)
 
@@ -42,10 +44,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dtype,atol', [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2 ** -8)])
-def test_k1_kernel_matches_plain(cuda, dtype, atol):
-    frames = torch.from_numpy(frame_batch(2, 720, 1280)).to(cuda)
+@pytest.mark.parametrize('dtype,atol', K1_TOLS)
+@pytest.mark.parametrize('case', [c[0] for c in K1_CASES])
+def test_k1_kernel_matches_plain(cuda, case, dtype, atol):
+    frames = k1_frames(case, cuda)
     out = resize_bilinear(frames, (300, 300), True, 1 / 255.0, dtype)
     ref = resize_bilinear_plain(frames, (300, 300), True, 1 / 255.0)
     torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)

@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, example, given, settings
+from hypothesis import strategies as st
 
 from tpudet3d.detect import decode_detections as jax_decode
 from tpudet3d.detect import generate_anchors as jax_anchors
@@ -37,7 +39,13 @@ from tpudet3d_torch.detect import (CASCADE_STDS, decode_boxes,
 from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
 from tpudet3d_torch.kernels.build import CSRC, SIGNATURES
 from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
-                                resize_bilinear, resize_bilinear_plain)
+                                resize_bilinear, resize_bilinear_plain,
+                                resize_weights)
+from tpudet3d_torch.ops.image import (K1_COL_ALIGN, SMEM_LIMIT,
+                                      resize_footprint,
+                                      resize_plan, resize_windows,
+                                      staged_ranges)
+from chip_smoke import K1_CASES
 from torch_port_common import one_cpu_thread, set_no_tf32
 from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
                                frame_batch, random_boxes)
@@ -117,6 +125,67 @@ def test_k1_scale_and_dtype():
     b = resize_bilinear_plain(frames, (30, 40)) / 255.0
     assert a.dtype == torch.bfloat16
     np.testing.assert_allclose(a.float().numpy(), b.numpy(), atol=2 ** -8)
+
+
+# --- K1's shared-memory footprint -----------------------------------------
+# The kernel stages each tile's input rows and columns in shared memory and
+# reads its taps from there; no CPU test could see a tap outside them.
+
+def _assert_tiles_cover(h, w, oh, ow):
+    """The plan fits in SMEM_LIMIT (or raises, when a 1-row tile does not),
+    and every tile's staged rows and columns hold every input at which
+    resize_weights is non-zero for the tile's outputs, each output's window
+    within its tile's taps."""
+    try:
+        plan = resize_plan(h, w, oh, ow)
+    except ValueError:
+        assert resize_footprint(h, w, oh, ow, 1).smem_bytes > SMEM_LIMIT
+        return
+    assert plan.smem_bytes <= SMEM_LIMIT
+    for n_in, n_out, tile, align, staged, taps in (
+            (h, oh, plan.tile_y, 1, plan.rows, plan.taps_y),
+            (w, ow, plan.tile_x, K1_COL_ALIGN, plan.cols, plan.taps_x)):
+        weights = resize_weights(n_in, n_out).numpy()
+        lo, hi = resize_windows(n_in, n_out)
+        first, last = staged_ranges(n_in, n_out, tile, align)
+        assert (last - first + 1 <= staged).all()
+        assert (hi - lo + 1 <= taps).all() and (lo <= hi).all()
+        idx = np.arange(n_in)
+        outside = (idx < lo[:, None]) | (idx > hi[:, None])
+        assert not (outside & (weights != 0)).any()
+        t = np.arange(n_out) // tile
+        assert (lo >= first[t]).all() and (hi <= last[t]).all()
+
+
+@pytest.mark.parametrize('case', K1_CASES, ids=[c[0] for c in K1_CASES])
+def test_k1_tiles_cover_path_shapes(case):
+    h, w = case[1]
+    _assert_tiles_cover(h, w, 300, 300)
+    # the path's shapes keep the 16-row tile
+    assert resize_plan(h, w, 300, 300).tile_y == 16
+
+
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(h=st.integers(1, 4096), w=st.integers(1, 4096),
+       fy=st.floats(1 / 8, 40.0), fx=st.floats(1 / 8, 40.0))
+@example(h=1, w=1, fy=1.0, fx=1.0)
+@example(h=1, w=4096, fy=1 / 300, fx=4096 / 300)
+@example(h=2160, w=3840, fy=7.2, fx=12.8)
+@example(h=4096, w=4096, fy=4096.0, fx=4096.0)
+def test_k1_tiles_cover_random_shapes(h, w, fy, fx):
+    oh = int(min(2048, max(1, round(h / fy))))
+    ow = int(min(2048, max(1, round(w / fx))))
+    _assert_tiles_cover(h, w, oh, ow)
+
+
+def test_k1_plan_shrinks_then_raises():
+    """4K → 300² needs 246 KB at 16 rows and runs at 8; a 4096² frame
+    to one pixel fits no tile, and the wrapper's plan raises."""
+    assert resize_footprint(2160, 3840, 300, 300, 16).smem_bytes > SMEM_LIMIT
+    assert resize_plan(2160, 3840, 300, 300).tile_y == 8
+    with pytest.raises(ValueError, match='shared memory'):
+        resize_plan(4096, 4096, 1, 1)
 
 
 # --- K2 crop ---------------------------------------------------------------

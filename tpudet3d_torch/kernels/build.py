@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # every entry ends with (device index, stream)
 SIGNATURES = {
     'tpd_resize_bilinear_u8': (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _F,
-                               _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     'tpd_crop_resize_u8': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                            _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
     'tpd_decode_nms': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -4,7 +4,8 @@ Two kernels live here, each as a plain PyTorch version and a wrapper:
 
 * K1 ``resize_bilinear``: uint8 NHWC frames → antialiased bilinear resize
   (``jax.image.resize(..., 'bilinear')`` semantics), optional channel
-  reversal and scale (``kernels/csrc/resize.cu``).
+  reversal and scale (``kernels/csrc/resize.cu``, one CTA per output tile;
+  :func:`resize_plan` sizes its shared memory).
 * K2 ``crop_and_resize``: boxes of uint8 NHWC frames → bilinear crops with
   cv2 pixel-centre sampling, border clamp, per-channel ``x*scale - offset``
   and an optional mirrored copy for TTA (``kernels/csrc/crop.cu``).
@@ -14,15 +15,23 @@ tensor it launches the kernel or raises.  ``wrapper.launches`` counts the
 kernel launches.
 """
 
+import functools
+from collections import namedtuple
+
 import numpy as np
 import torch
 
 from ..kernels.build import check, library, stream_args
 
 __all__ = ['resize_weights', 'resize_bilinear_plain', 'resize_bilinear',
-           'crop_and_resize_plain', 'crop_and_resize']
+           'resize_windows', 'staged_ranges', 'resize_footprint',
+           'resize_plan', 'crop_and_resize_plain', 'crop_and_resize']
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+SMEM_LIMIT = 232448        # shared bytes a CTA may opt into on the H100
+K1_TILE_X = 32
+K1_COL_ALIGN = 4           # a tile's first staged column is a multiple of it
+K1_TILE_Y = (16, 8, 4, 2, 1)   # tried in this order until the tile fits
 
 
 def resize_weights(in_size, out_size, device=None):
@@ -64,6 +73,74 @@ def resize_bilinear_plain(frames, out_hw, reverse_channels=False, scale=1.0,
     return (x * scale).to(dtype)
 
 
+def resize_windows(n_in, n_out):
+    """First and last input index ``(lo, hi)`` of each output's filter
+    window along one axis, in float32 as K1 computes them: every weight of
+    :func:`resize_weights` outside ``[lo, hi]`` is 0."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    k = max(inv, np.float32(1.0))
+    s = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv
+         - np.float32(0.5))
+    lo = np.maximum(np.ceil(s - k), 0).astype(np.int64)
+    hi = np.minimum(np.floor(s + k), n_in - 1).astype(np.int64)
+    return lo, hi
+
+
+def staged_ranges(n_in, n_out, tile, align=1):
+    """First and last input index that K1 stages for each tile of ``tile``
+    outputs along one axis: from the first output's window, rounded down to
+    a multiple of ``align`` (K1_COL_ALIGN for columns), to the last's."""
+    lo, hi = resize_windows(n_in, n_out)
+    last = np.minimum(np.arange(tile - 1, n_out + tile - 1, tile), n_out - 1)
+    return lo[::tile] // align * align, hi[last]
+
+
+def _align16(v):
+    return (v + 15) // 16 * 16
+
+
+Footprint = namedtuple('Footprint', 'tile_y tile_x rows cols taps_y taps_x '
+                                    'smem_bytes')
+
+
+def resize_footprint(h, w, oh, ow, tile_y):
+    """K1's shared memory for tiles of ``tile_y × K1_TILE_X`` outputs: the
+    most input rows and columns a tile stages, the most taps per output along
+    each axis, and the bytes of ``resize.cu``'s ``make_layout`` for them
+    (an f32 ``[3, tile_y, cols + taps_x4 - 1]`` intermediate, x weights
+    padded to whole float4s, ``taps_x4`` per output column, (weight, row
+    offset) pairs per output row, a tap count per output row and a first
+    float4 per output column, then the staged rows at a 16-byte-aligned
+    stride with room for a row's shift and 4-pixel reads past its end)."""
+    tile_x = K1_TILE_X
+    spans = []
+    for n_in, n_out, tile, align in ((h, oh, tile_y, 1),
+                                     (w, ow, tile_x, K1_COL_ALIGN)):
+        first, last = staged_ranges(n_in, n_out, tile, align)
+        lo, hi = resize_windows(n_in, n_out)
+        spans += [int((last - first).max()) + 1, int((hi - lo).max()) + 1]
+    rows, taps_y, cols, taps_x = spans
+    taps_x4 = (taps_x + 6) // 4 * 4
+    inter_stride = (cols + taps_x4 + 2) // 4 * 4
+    fixed = (4 * 3 * tile_y * inter_stride + 4 * tile_x * taps_x4
+             + 8 * tile_y * taps_y + 4 * (tile_y + tile_x))
+    return Footprint(tile_y, tile_x, rows, cols, taps_y, taps_x,
+                     _align16(fixed) + rows * _align16(cols * 3 + 29))
+
+
+@functools.lru_cache(maxsize=64)
+def resize_plan(h, w, oh, ow):
+    """The footprint of the tallest tile in :data:`K1_TILE_Y` that fits in
+    :data:`SMEM_LIMIT`; raises ``ValueError`` if a 1-row tile does not."""
+    for tile_y in K1_TILE_Y:
+        fp = resize_footprint(h, w, oh, ow, tile_y)
+        if fp.smem_bytes <= SMEM_LIMIT:
+            return fp
+    raise ValueError(f'resize {h}x{w} -> {oh}x{ow}: a 1x{K1_TILE_X} tile '
+                     f'needs {fp.smem_bytes} bytes of shared memory, more '
+                     f'than {SMEM_LIMIT}')
+
+
 def _check_frames(frames):
     if frames.dtype != torch.uint8 or frames.dim() != 4 \
             or frames.shape[-1] != 3 or not frames.is_contiguous():
@@ -93,11 +170,12 @@ def resize_bilinear(frames, out_hw, reverse_channels=False, scale=1.0,
     _check_dtype(dtype)
     n, h, w, _ = frames.shape
     oh, ow = out_hw
+    plan = resize_plan(h, w, oh, ow)
     out = torch.empty((n, oh, ow, 3), dtype=dtype, device=frames.device)
     err = library().tpd_resize_bilinear_u8(
         frames.data_ptr(), out.data_ptr(), n, h, w, oh, ow,
         1.0 / (oh / h), 1.0 / (ow / w), int(reverse_channels), scale,
-        int(dtype == torch.bfloat16), *stream_args(frames))
+        int(dtype == torch.bfloat16), *plan, *stream_args(frames))
     check(err, 'resize_bilinear')
     resize_bilinear.launches += 1
     return out

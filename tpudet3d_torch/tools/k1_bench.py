@@ -1,0 +1,152 @@
+"""K1 (the antialiased preprocess resize) on one NVIDIA GPU, at batch 16 of
+720p → 300² bf16 with the channel reversal and the 1/255 scale.
+
+    python tpudet3d_torch/tools/k1_bench.py [--trees DIR ...] [--out FILE]
+
+Times the kernel warm (back-to-back launches on one 44 MB batch, which the
+50 MB L2 partly holds), cold (launches cycling over 3 batches, 133 MB, so
+that each finds its input evicted) and at N=1, and checks it against its
+plain version.  With ``--trees``, each DIR's own ``tpudet3d_torch``, its
+kernels built from its own sources, is timed in a process of its own, in
+the order given (``--trees parent . . parent`` compares two checkouts in
+turns); every process makes the same inputs from the same seeds.  Prints a
+JSON line per run with the card's name and power limit and the resize
+source's ``ptxas`` report.  Needs CUDA.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+FRAME = (720, 1280, 3)
+OUT_HW = (300, 300)
+
+
+def cycle_ms(fns, iters):
+    """Mean device time per call over ``iters`` calls that cycle through
+    ``fns`` (CUDA events, after one warm-up call of each)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=50):
+    """Device time per call of the kernels that ``fn`` launches, summed
+    from ``torch.profiler`` (None if it records no device activity).  A
+    kernel shorter than its host dispatch shows its own time here."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+            if events else None)
+
+
+def k1_times(resize, batches):
+    """``resize`` (a K1 wrapper) on ``batches`` of uint8 frames, whose total
+    exceeds the L2: warm ms on the first, cold ms cycling over all, warm
+    ms at N=1 (back to back, so the host's dispatch may set it) and the
+    N=1 kernel's own device time."""
+    def call(f):
+        return lambda: resize(f, OUT_HW, True, 1 / 255.0, torch.bfloat16)
+    return dict(ms=cycle_ms([call(batches[0])], 50),
+                ms_cold=cycle_ms([call(b) for b in batches], 60),
+                ms_n1=cycle_ms([call(batches[0][:1])], 200),
+                device_ms_n1=device_ms(call(batches[0][:1])))
+
+
+def library_times(batches):
+    """``F.interpolate(antialias=True)`` on float32 NCHW copies of
+    ``batches``, warm and cycling, as for :func:`k1_times`."""
+    import torch.nn.functional as F
+    xs = [b.permute(0, 3, 1, 2).float().contiguous() for b in batches]
+
+    def call(x):
+        return lambda: F.interpolate(x, size=OUT_HW, mode='bilinear',
+                                     antialias=True, align_corners=False)
+    return dict(library_ms=cycle_ms([call(xs[0])], 20),
+                library_ms_cold=cycle_ms([call(x) for x in xs], 30))
+
+
+def gpu_line():
+    res = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def run_tree(tree):
+    """Times the K1 of the ``tpudet3d_torch`` found in ``tree``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from tpudet3d_torch.kernels.build import build
+    from tpudet3d_torch.ops import resize_bilinear, resize_bilinear_plain
+    _, build_s, log = build()
+    ptxas = next((part for part in log.split('== ')
+                  if part.startswith('resize.cu')), '')
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [torch.randint(0, 256, (16, *FRAME), dtype=torch.uint8,
+                             device=dev, generator=gen) for _ in range(3)]
+    err = (resize_bilinear(batches[0], OUT_HW, True, 1 / 255.0,
+                           torch.bfloat16).float()
+           - resize_bilinear_plain(batches[0], OUT_HW, True, 1 / 255.0)
+           ).abs().max().item()
+    if not err <= 2 ** -8:
+        raise RuntimeError(f'k1_bench: K1 of {tree} disagrees: {err}')
+    return dict(tree=tree, gpu=gpu_line(), build_s=build_s,
+                max_abs_err=err, **k1_times(resize_bilinear, batches),
+                ptxas=ptxas.strip())
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--trees', nargs='+', default=None,
+                    help='checkouts to time in turns, each in a process of '
+                    'its own')
+    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--out', default='')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('k1_bench: CUDA is not available', file=sys.stderr)
+        return 1
+    if args.tree:
+        print(json.dumps(run_tree(args.tree)))
+        return 0
+    runs = []
+    for tree in args.trees or [os.getcwd()]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--tree', tree], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps({k: v for k, v in runs[-1].items()
+                          if k != 'ptxas'}))
+    for tree, ptxas in {r['tree']: r['ptxas'] for r in runs}.items():
+        print(f'{tree} ptxas:\n{ptxas}')
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(runs, f, indent=1)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -27,7 +27,7 @@ STEPS = 5
 
 # kernel-name fragments → group, first match wins
 GROUPS = (
-    ('K1 resize', ('resize_bilinear_u8_kernel',)),
+    ('K1 resize', ('resize_tiled_u8_kernel',)),
     ('K2 crop', ('crop_resize_u8_kernel',)),
     ('K3 decode_nms', ('class_nms_kernel', 'merge_kernel')),
     ('K4 head_epilogue', ('head_epilogue_kernel',)),
