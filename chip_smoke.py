@@ -8,13 +8,13 @@ Phases, each fatal on failure:
 2. Hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (K1 resize at N=1 and 16 of 720p and on every shape of
    ``K1_CASES``, K2 crop on 128 boxes
-   with TTA off and on, K3 decode+NMS at N=16, A=2044, C=9, K=32 in the
-   greedy, soft-NMS and box-vote settings, K4 head epilogue on 128 crops
+   with TTA off and on, K3 decode+NMS at A=2044, C=9 on every case of
+   ``K3_CASES``, K4 head epilogue on 128 crops
    with TTA off and on in refine and pack mode with bf16 logits that carry
    exact ties, K5 oriented-box IoU at P=8 and 128 on random boxes and on
    exact cases, and against scipy on 32 pairs) and time kernel, plain
    version and, where one exists, the PyTorch library call (K1 also with
-   a cold L2 and at N=1).
+   a cold L2 and at N=1, K3 in three settings, at N=1 and on the device).
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
@@ -46,6 +46,10 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpudet3d_torch.tools.k3_bench import BASE as K3_BASE
+from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
+from tpudet3d_torch.tools.k3_bench import det_batch, k3_times
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, non-tensor float32, published
@@ -232,34 +236,64 @@ def compare_dets(out, ref, what):
     return max(e_s, e_b)
 
 
+# K3's cases, each on top of K3_BASE: (name, N, logits of
+# k3_bench.det_batch, settings).  The serving path's greedy, soft-NMS and
+# box-vote settings at N=16 and N=1; objectron_eval's floor at det_tresh 0
+# and its --preset recall; background-dominant logits that leave fewer
+# than K candidates per class (zero rows padded); a run of equal scores
+# across the K-th place; K=256 (max_detections 64) and the JAX defaults
+# (K=200, max_per_img 200), above the K up to which the kernel keeps the
+# soft-NMS decays in shared memory.
+K3_SOFT = K3_SETTINGS['soft']
+K3_CASES = (('greedy', 16, 'random', {}),
+            ('soft', 16, 'random', K3_SOFT),
+            ('vote', 16, 'random', K3_SETTINGS['vote']),
+            ('n1', 1, 'random', {}),
+            ('floor0', 16, 'random', dict(score_thr=0.0)),
+            ('recall', 16, 'random', dict(score_thr=0.005, **K3_SOFT)),
+            ('sparse', 16, 'sparse', {}),
+            ('ties', 16, 'ties', {}),
+            ('k256', 16, 'random', dict(pre_nms_k=256, max_per_img=64)),
+            ('k256_soft', 16, 'random', dict(pre_nms_k=256, max_per_img=64,
+                                            **K3_SOFT)),
+            ('jax_defaults', 16, 'random', dict(pre_nms_k=200,
+                                                max_per_img=200)),
+            ('jax_defaults_vote', 16, 'random', dict(
+                pre_nms_k=200, max_per_img=200, box_vote_iou=0.6)))
+
+
+def k3_case(case, dev, n=None):
+    """Logits and deltas of a K3_CASES entry on ``dev`` (its first ``n``
+    images, all by default) and its decode settings."""
+    _, n_case, kind, kw = next(c for c in K3_CASES if c[0] == case)
+    logits, deltas = det_batch(n_case, kind)
+    return (torch.from_numpy(logits[:n]).to(dev),
+            torch.from_numpy(deltas[:n]).to(dev), dict(K3_BASE, **kw))
+
+
 def check_k3(dev, ops, anchors):
+    """K3 against its plain version on every K3_CASES entry; times at
+    N=16, A=2044, C=9, K=32 (k3_bench.k3_times)."""
     decode_detections, decode_detections_plain = ops
-    rng = np.random.RandomState(2)
-    logits = (rng.standard_normal((16, 2044, 10)) * 2.0).astype(np.float32)
-    logits[:, 100:140] = logits[:, 99:100]              # exact score ties
-    deltas = (rng.standard_normal((16, 2044, 4)) * 0.5).astype(np.float32)
-    logits, deltas = (torch.from_numpy(a).to(dev) for a in (logits, deltas))
-    base = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32)
     err = 0.0
-    for name, kw in (('greedy', {}),
-                     ('soft', dict(soft_nms_sigma=0.5, soft_nms_dup_iou=0.75)),
-                     ('vote', dict(box_vote_iou=0.6))):
-        kw = dict(base, **kw)
+    for case, *_ in K3_CASES:
+        logits, deltas, kw = k3_case(case, dev)
         err = max(err, compare_dets(
             decode_detections(logits, deltas, anchors, **kw),
             decode_detections_plain(logits, deltas, anchors, **kw),
-            f'K3 N=16 {name}'))
+            f'K3 {case} N={logits.shape[0]}'))
+    logits, deltas, _ = k3_case('greedy', dev)
+    times = k3_times(decode_detections, logits, deltas, anchors)
+    print('K3 N=16 K=32: ' + ', '.join(f'{k} {v}' for k, v in times.items()))
     n_bytes = (logits.numel() + deltas.numel() + anchors.numel()
                + 16 * 8 * 6) * 4
     # softmax (sub, exp, add, div per logit), decode, and the K^2 IoUs of
     # each (image, class)
     n_ops = logits.numel() * 4 + 16 * 9 * (32 * 32 * 12 + 32 * 16)
     return dict(
-        err=err,
-        ms=time_ms(lambda: decode_detections(logits, deltas, anchors,
-                                             **base), 50),
+        err=err, ms=times.pop('ms_greedy'), **times,
         plain_ms=time_ms(lambda: decode_detections_plain(
-            logits, deltas, anchors, **base), 3),
+            logits, deltas, anchors, **K3_BASE), 3),
         library_ms=None, bound=bound_ms(n_bytes, n_ops))
 
 
@@ -892,6 +926,9 @@ def run(dev, out_path, iters=20):
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
+    kernels[2].update(ms_soft=k3['ms_soft'], ms_vote=k3['ms_vote'],
+                      ms_n1=k3['ms_n1'], device_ms=k3['device_ms'],
+                      device_ms_n1=k3['device_ms_n1'])
     kernels[3].update(launches_per_pass_kernel_plain=k4['launches_per_pass'],
                       device_ms=k4['device_ms'],
                       plain_device_ms=k4['plain_device_ms'])

@@ -11,7 +11,8 @@ the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact; K5 1e-5 (kernel and plain version compute the same float32
 operations in the same order).
 
-The K1 shapes and the K4 and K5 inputs come from chip_smoke.py, so these
+The K1 shapes, the K3 cases and the K4 and K5 inputs come from
+chip_smoke.py, so these
 tests, the card smoke and the CPU parity tests (tests/test_torch_port_eval.py,
 tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
 root, which puts chip_smoke.py on the import path.
@@ -28,10 +29,9 @@ from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
-from chip_smoke import (K1_CASES, K1_TOLS, K4_REFINE, k1_frames, k4_inputs,
-                        k5_exact_cases, k5_fuzz_pairs)
-from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
-                               frame_batch, random_boxes)
+from chip_smoke import (K1_CASES, K1_TOLS, K3_CASES, K4_REFINE, k1_frames,
+                        k3_case, k4_inputs, k5_exact_cases, k5_fuzz_pairs)
+from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 
 @pytest.fixture
@@ -65,12 +65,9 @@ def test_k2_kernel_matches_plain(cuda, mirror):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('setting', list(K3_SETTINGS))
-def test_k3_kernel_matches_plain(cuda, setting):
-    kw = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32,
-              **K3_SETTINGS[setting])
-    logits, deltas = (torch.from_numpy(a).to(cuda)
-                      for a in det_inputs(n=4, ties=True))
+@pytest.mark.parametrize('case', [c[0] for c in K3_CASES])
+def test_k3_kernel_matches_plain(cuda, case):
+    logits, deltas, kw = k3_case(case, cuda)
     anchors = torch.from_numpy(generate_anchors()).to(cuda)
     out = decode_detections(logits, deltas, anchors, **kw)
     ref = decode_detections_plain(logits, deltas, anchors, **kw)

@@ -6,7 +6,8 @@ Tolerances (gray levels of 0..255 images):
   K1/K2 plain vs the JAX f32 functions       ≤ 1e-3 (f32 reordering)
   K1/K2 plain vs the JAX bf16 serving calls  ≤ 2    (JAX rounds weights and
                                                      intermediates to bf16)
-  K3 plain vs decode_detections (A=2044, C=9) scores 1e-6, boxes 1e-4 px
+  K3 plain vs decode_detections (A=2044, C=9) scores 1e-6, boxes 1e-4 px,
+  kept rows and labels exact
 """
 
 import re
@@ -31,6 +32,8 @@ from tpudet3d.infer.engine import REG_STD as JAX_REG_STD
 from tpudet3d.ops.image import crop_and_resize as jax_crop
 from tpudet3d.ops.image import resize_bilinear as jax_resize
 
+from tpudet3d_torch.detect.nms import SMEM_LIMIT as SMEM_LIMIT_K3
+from tpudet3d_torch.detect.nms import decode_nms_smem
 from tpudet3d_torch.detect import (CASCADE_STDS, decode_boxes,
                                    decode_detections,
                                    decode_detections_plain, encode_boxes,
@@ -45,9 +48,10 @@ from tpudet3d_torch.ops.image import (K1_COL_ALIGN, SMEM_LIMIT,
                                       resize_footprint,
                                       resize_plan, resize_windows,
                                       staged_ranges)
-from chip_smoke import K1_CASES
+from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
+from chip_smoke import K1_CASES, K3_CASES, k3_case
 from torch_port_common import one_cpu_thread, set_no_tf32
-from torch_port_inputs import (K3_SETTINGS, assert_dets_match, det_inputs,
+from torch_port_inputs import (assert_dets_match, det_inputs,
                                frame_batch, random_boxes)
 
 @pytest.fixture(autouse=True)
@@ -259,6 +263,45 @@ def test_k3_plain_matches_jax(setting, ties):
                                   torch.from_numpy(generate_anchors()), **kw)
     assert out.shape == (2, 8, 6)
     assert_dets_match(out.numpy(), ref)
+
+
+@pytest.mark.parametrize('case', ['floor0', 'recall', 'sparse', 'ties',
+                                  'k256', 'jax_defaults'])
+def test_k3_plain_matches_jax_cases(case):
+    """The K3_CASES settings the card checks, at N=2: score floor 0,
+    --preset recall, background-dominant logits (zero rows padded), a tie
+    run across the K-th place, K=256 and the JAX defaults K=200/200."""
+    logits, deltas, kw = k3_case(case, 'cpu', n=2)
+    ref = _jax_dets(logits.numpy(), deltas.numpy(), **kw)
+    out = decode_detections_plain(logits, deltas,
+                                  torch.from_numpy(generate_anchors()), **kw)
+    assert out.shape == (2, kw['max_per_img'], 6)
+    assert_dets_match(out.numpy(), ref)
+    if case == 'sparse':               # fewer than K candidates per class
+        probs = torch.softmax(logits, -1)[..., :-1]
+        assert ((probs > kw['score_thr']).sum(1) < kw['pre_nms_k']).all()
+
+
+def test_k3_smem_layout():
+    """The kernel's shared memory (decode_nms_smem, which the C entry
+    checks against its own layout): at the serving shape two CTAs fit on
+    an SM (228 KB, 1 KB reserved per CTA), so the 144 CTAs of a batch of
+    16 are resident at once; every K3_CASES shape fits a CTA; the decays
+    are kept only up to K=128."""
+    assert decode_nms_smem(2044, 9, 32, 8) == (
+        (2044 + 8) // 9 * 10 * 4 + 16 + 2044 * 4 + 2 * 256 * 4 + 64 * 4
+        + 32 * 60)
+    for _, _, _, kw in K3_CASES:
+        k, m = kw.get('pre_nms_k', 32), kw.get('max_per_img', 8)
+        assert 2 * (decode_nms_smem(2044, 9, k, m) + 1024) <= 228 * 1024
+    # where the logits no longer set region 0: the decays, then the lists
+    tail = 64 * 4 + 2048 + 256
+    assert decode_nms_smem(64, 1, 128, 8) \
+        == 128 * 128 * 4 + 128 * 4 * 4 + tail + 128 * 60
+    assert decode_nms_smem(64, 1, 129, 8) == 2592 + tail + 129 * 60
+    assert decode_nms_smem(16, 16, 256, 256) \
+        == 16 * 256 * 4 + 16 * 4 + 2048 + 256 + 256 * 60
+    assert decode_nms_smem(40000, 9, 32, 8) > SMEM_LIMIT_K3
 
 
 def test_nms_units_match_jax():

@@ -3,12 +3,6 @@ the tests of the CUDA kernels run on a machine that has only PyTorch."""
 
 import numpy as np
 
-K3_SETTINGS = {
-    'greedy': dict(),
-    'soft': dict(soft_nms_sigma=0.5, soft_nms_dup_iou=0.75),
-    'vote': dict(box_vote_iou=0.6),
-}
-
 
 def frame_batch(n, h, w, seed=0):
     return np.random.RandomState(seed).randint(0, 256, (n, h, w, 3)) \

@@ -23,7 +23,7 @@ from .assigner import iou_xyxy
 from .coder import decode_boxes
 
 __all__ = ['greedy_nms', 'soft_nms', 'decode_detections_plain',
-           'decode_detections']
+           'decode_detections', 'decode_nms_smem']
 
 
 def greedy_nms(boxes, scores, iou_thr=0.45):
@@ -125,12 +125,41 @@ def decode_detections_plain(cls_logits, bbox_deltas, anchors, score_thr=0.02,
     return torch.cat([boxes, final_scores[..., None], labels[..., None]], -1)
 
 
+# limits of the kernel (kernels/csrc/decode_nms.cu): K, classes per image
+# (the size of a thread-block cluster), K up to which the soft-NMS decays
+# stay in shared memory, and the shared memory a CTA may have
+MAX_K = 256
+MAX_CLASSES = 16
+DECAY_MATRIX_MAX_K = 128
+SMEM_LIMIT = 232448
+
+
+def _up16(b):
+    return (b + 15) // 16 * 16
+
+
+def decode_nms_smem(a, c, k, max_det):
+    """Shared-memory bytes of one K3 CTA for A anchors, C classes, top K
+    and ``max_det`` rows (the kernel's ``make_layout``, which the C entry
+    checks against this): the logits of the CTA's slice of ⌈A/C⌉ anchors,
+    later the soft-NMS decays (up to K = 128) and greedy bit rows, later
+    the other classes' first min(K, max_det) scores; the score bits of all
+    A anchors; two 256-bin histograms; 64 scalars; 15 words per
+    candidate."""
+    w = (k + 31) // 32
+    nms = (k * k * 4 if k <= DECAY_MATRIX_MAX_K else 0) + k * w * 4
+    region0 = max(((a + c - 1) // c * (c + 1) + 4) * 4, nms,
+                  c * min(k, max_det) * 4)
+    return _up16(region0) + _up16(a * 4) + 2 * 256 * 4 + 64 * 4 + k * 60
+
+
 def decode_detections(cls_logits, bbox_deltas, anchors, score_thr=0.02,
                       iou_thr=0.45, max_per_img=200, pre_nms_k=200,
                       soft_nms_sigma=0.0, soft_nms_dup_iou=1.0,
                       box_vote_iou=0.0):
     """K3: see :func:`decode_detections_plain`.  On the card the inputs are
-    contiguous float32 tensors on one device."""
+    contiguous float32 tensors on one device; one launch, a thread-block
+    cluster of the C class CTAs per image."""
     args = (score_thr, iou_thr, max_per_img, pre_nms_k, soft_nms_sigma,
             soft_nms_dup_iou, box_vote_iou)
     if cls_logits.device.type == 'cpu':
@@ -147,21 +176,22 @@ def decode_detections(cls_logits, bbox_deltas, anchors, score_thr=0.02,
             raise ValueError(f'expected contiguous float32 {shape} on '
                              f'{cls_logits.device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    if not 0 < k <= min(a, 256) or not 0 < max_per_img <= c * k:
+    if not 0 < c <= MAX_CLASSES or not 0 < k <= min(a, MAX_K) \
+            or not 0 < max_per_img <= c * k or not 0 < n:
         raise ValueError(f'unsupported pre_nms_k={k} / max_per_img='
-                         f'{max_per_img} for A={a}, C={c}')
-    if (a + 8 * k) * 4 > 48 * 1024:
-        raise ValueError(f'A={a}, K={k} exceed the kernel\'s shared memory')
-    dev = cls_logits.device
-    cls_boxes = torch.empty((n, c, k, 4), dtype=torch.float32, device=dev)
-    cls_scores = torch.empty((n, c, k), dtype=torch.float32, device=dev)
-    out = torch.empty((n, max_per_img, 6), dtype=torch.float32, device=dev)
+                         f'{max_per_img} for N={n}, A={a}, C={c}')
+    smem = decode_nms_smem(a, c, k, max_per_img)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'A={a}, C={c}, K={k} need {smem} bytes of shared '
+                         f'memory, more than {SMEM_LIMIT}')
+    out = torch.empty((n, max_per_img, 6), dtype=torch.float32,
+                      device=cls_logits.device)
     inv_sigma = _inv(soft_nms_sigma) if soft_nms_sigma > 0.0 else 0.0
     err = library().tpd_decode_nms(
         cls_logits.data_ptr(), bbox_deltas.data_ptr(), anchors.data_ptr(),
-        cls_boxes.data_ptr(), cls_scores.data_ptr(), out.data_ptr(), n, a, c,
-        k, max_per_img, score_thr, iou_thr, inv_sigma, soft_nms_dup_iou,
-        box_vote_iou, math.log(16.0), *stream_args(cls_logits))
+        out.data_ptr(), n, a, c, k, max_per_img, score_thr, iou_thr,
+        inv_sigma, soft_nms_dup_iou, box_vote_iou, math.log(16.0), smem,
+        *stream_args(cls_logits))
     check(err, 'decode_detections')
     decode_detections.launches += 1
     return out

@@ -115,6 +115,26 @@ def run_tree(tree):
                 ptxas=ptxas.strip())
 
 
+def run_trees(script, trees, timeout=600):
+    """Runs ``script --tree DIR`` for each of ``trees`` in a process of its
+    own, in the order given, and returns the JSON object that each prints
+    last (printing each, its ``ptxas`` report left out, as it comes)."""
+    runs = []
+    for tree in trees:
+        res = subprocess.run([sys.executable, os.path.abspath(script),
+                              '--tree', tree], capture_output=True,
+                             text=True, timeout=timeout)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            raise RuntimeError(f'{os.path.basename(script)} failed on {tree}')
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps({k: v for k, v in runs[-1].items()
+                          if k != 'ptxas'}), flush=True)
+    for tree, ptxas in {r['tree']: r['ptxas'] for r in runs}.items():
+        print(f'{tree} ptxas:\n{ptxas}')
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--trees', nargs='+', default=None,
@@ -129,19 +149,7 @@ def main():
     if args.tree:
         print(json.dumps(run_tree(args.tree)))
         return 0
-    runs = []
-    for tree in args.trees or [os.getcwd()]:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--tree', tree], capture_output=True,
-                             text=True, timeout=600)
-        if res.returncode:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return res.returncode
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps({k: v for k, v in runs[-1].items()
-                          if k != 'ptxas'}))
-    for tree, ptxas in {r['tree']: r['ptxas'] for r in runs}.items():
-        print(f'{tree} ptxas:\n{ptxas}')
+    runs = run_trees(__file__, args.trees or [os.getcwd()])
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(runs, f, indent=1)
