@@ -7,19 +7,22 @@ Phases, each fatal on failure:
 1. Build the CUDA kernels from ``tpudet3d_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (K1 resize at N=1 and 16 of 720p and on every shape of
-   ``K1_CASES``, K2 crop on 128 boxes
-   with TTA off and on, K3 decode+NMS at A=2044, C=9 on every case of
-   ``K3_CASES``, K4 head epilogue on 128 crops
+   ``K1_CASES``, K2 crop on every case of ``K2_CASES`` with TTA off and
+   on, K3 decode+NMS at A=2044, C=9 on every case of ``K3_CASES`` (K up
+   to 2044), K4 head epilogue on 128 crops
    with TTA off and on in refine and pack mode with bf16 logits that carry
    exact ties, K5 oriented-box IoU at P=8 and 128 on random boxes and on
    exact cases, and against scipy on 32 pairs) and time kernel, plain
-   version and, where one exists, the PyTorch library call (K1 also with
-   a cold L2 and at N=1, K3 in three settings, at N=1 and on the device).
+   version and, where one exists, the PyTorch library call (K1 and K2 also
+   with a cold L2 and at N=1, K2 with the mirror, K3 in three settings, at
+   N=1 and on the device).
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
    ``wait_and_grab``; check the outputs and that K1–K4 were launched; hold
-   the path's own intermediates against the plain versions.
+   the path's own intermediates against the plain versions.  Then an
+   engine with max_detections 128 (K3 at K=512) through ``infer_batch``,
+   checked the same way.
 4. Time server frames/s at batches 16 and 32 (device-resident input,
    median of 3 loops) and the blocked single-frame latency.
 5. Drive the evaluation path at full width: ``objectron_eval``'s
@@ -45,8 +48,8 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from tpudet3d_torch.tools.k2_bench import engine_like_boxes
 from tpudet3d_torch.tools.k3_bench import BASE as K3_BASE
 from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
 from tpudet3d_torch.tools.k3_bench import det_batch, k3_times
@@ -91,17 +94,6 @@ def gpu_line():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def engine_like_boxes(n, k, h, w, seed):
-    """Boxes as the serving path makes them: inside the frame, some on its
-    edges, some thinner than a pixel."""
-    rng = np.random.RandomState(seed)
-    x0 = rng.uniform(-40, w, (n, k))
-    y0 = rng.uniform(-40, h, (n, k))
-    b = np.stack([x0, y0, x0 + rng.uniform(0.2, w / 2, (n, k)),
-                  y0 + rng.uniform(0.2, h / 2, (n, k))], -1)
-    return np.clip(b, 0, [w, h, w, h]).astype(np.float32)
 
 
 # K1's shapes on the port's paths, resized to 300²: (name, (H, W), batch,
@@ -178,46 +170,106 @@ def touched_pixels(boxes, h, w, out_hw):
     return int(mask.sum())
 
 
-def check_k2(dev, frames, ops, norm):
+# K2's cases: (name, frames (N, H, W), boxes, output (h, w)).  'serving':
+# the serving path's 128 boxes of 720p frames; 'tiny': 1-px, sub-pixel,
+# empty and inverted boxes (side floored at 1 px); 'border': boxes touching
+# and crossing each frame border and one wholly outside (clamp); 'full_row':
+# boxes spanning the whole 1280-px row and more; 'upscale': boxes of 22 px
+# and 4 px upscaled 10x and 56x to 224; 'portrait': the evaluation path's
+# 1280x720 frames; 'n1': one frame; 'out64x48' and 'out62x50': output sizes
+# of the CPU tests, 50 columns not a multiple of the kernel's 8-pixel runs
+# and 62 rows not a multiple of its band.
+K2_CASES = (('serving', (16, 720, 1280), 'engine', (224, 224)),
+            ('tiny', (2, 720, 1280), 'tiny', (224, 224)),
+            ('border', (2, 720, 1280), 'border', (224, 224)),
+            ('full_row', (2, 720, 1280), 'full_row', (224, 224)),
+            ('upscale', (2, 720, 1280), 'upscale', (224, 224)),
+            ('portrait', (2, 1280, 720), 'engine', (224, 224)),
+            ('n1', (1, 720, 1280), 'engine', (224, 224)),
+            ('out64x48', (2, 720, 1280), 'engine', (64, 48)),
+            ('out62x50', (2, 720, 1280), 'border', (62, 50)))
+K2_TOLS = ((torch.bfloat16, 2 ** -7 + 1e-4), (torch.float32, 1e-4))
+
+
+def k2_boxes(kind, n, h, w, seed=1):
+    """Boxes [n,8,4] of a K2_CASES kind as numpy."""
+    if kind == 'engine':
+        return engine_like_boxes(n, 8, h, w, seed)
+    rng = np.random.RandomState(seed)
+    x, y = rng.uniform(0, w - 30, 8), rng.uniform(0, h - 30, 8)
+    if kind == 'tiny':
+        b = [[x[0], y[0], x[0] + 1, y[0] + 1],
+             [x[1], y[1], x[1] + .3, y[1] + .2],
+             [x[2], y[2], x[2], y[2]],
+             [x[3], y[3], x[3] - 5, y[3] - 3],
+             [0, 0, 1, 1], [w - 1, h - 1, w, h],
+             [x[6], y[6], x[6] + 1.5, y[6] + .7],
+             [x[7] + .5, y[7] + .5, x[7] + 1.25, y[7] + 3]]
+    elif kind == 'border':
+        b = [[0, 0, 50, 40], [-30, -20, 40, 30], [w - 50, h - 40, w, h],
+             [w - 40, h - 30, w + 30, h + 20], [-10, 100, w + 10, 200],
+             [100, -5, 200, h + 5], [w - 1, h - 1, w + 5, h + 5],
+             [-20, -20, -5, -5]]
+    elif kind == 'full_row':
+        b = [[0, y[0], w, y[0] + 100], [-50, y[1], w + 50, y[1] + 300],
+             [0, 0, w, h], [0, y[3], w, y[3] + 1], [0.5, 0, w - 0.5, 20],
+             [0, h - 224, w, h], [-1, y[6], w + 1, y[6] + 5],
+             [0, y[7], w, y[7] + 10]]
+    elif kind == 'upscale':
+        b = [[x[i], y[i], x[i] + 22.4, y[i] + 22.4] for i in range(6)] + [
+            [x[6], y[6], x[6] + 4, y[6] + 4], [0, 0, 22.4, 22.4]]
+    else:
+        raise ValueError(f'unknown kind {kind!r}')
+    b = np.asarray(b, np.float32)
+    return np.stack([b + 3 * i * (kind not in ('border', 'full_row'))
+                     for i in range(n)])
+
+
+def k2_case(case, dev, seed=0):
+    """The frames, boxes and output size of a K2_CASES entry on ``dev``."""
+    _, (n, h, w), kind, out_hw = next(c for c in K2_CASES if c[0] == case)
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    return (torch.from_numpy(frames).to(dev),
+            torch.from_numpy(k2_boxes(kind, n, h, w)).to(dev), out_hw)
+
+
+def check_k2(dev, ops, norm):
+    """K2 against its plain version on every K2_CASES entry with and
+    without the mirror, in bf16 and f32; times at the serving shape, warm,
+    cold, mirrored and at N=1 (k2_bench.k2_times), and F.grid_sample's."""
+    from tpudet3d_torch.tools.k2_bench import (k2_times, library_times,
+                                               serving_inputs)
     crop_and_resize, crop_and_resize_plain = ops
-    boxes = torch.from_numpy(engine_like_boxes(16, 8, *FRAME[:2], 1)).to(dev)
-    args = ((224, 224), True, norm[0], norm[1])
     err = 0.0
-    for mirror in (False, True):
-        ref = crop_and_resize_plain(frames, boxes, *args, mirror)
-        for dtype, tol in ((torch.bfloat16, 2 ** -7 + 1e-4),
-                           (torch.float32, 1e-4)):
-            e = max_err(crop_and_resize(frames, boxes, *args, mirror, dtype),
-                        ref)
-            print(f'K2 128 boxes mirror={mirror} {dtype}: max |kernel - '
-                  f'plain| = {e:.3g} (tol {tol:.3g})')
-            expect(e <= tol, f'K2 mirror={mirror} {dtype} disagrees: {e}')
-            err = max(err, e)
-    # library yardstick: grid_sample with border padding on an f32 frame
-    x_f32 = frames.permute(0, 3, 1, 2).float().contiguous()
-    b = boxes
-    side = (b[..., 2:] - b[..., :2]).clamp(min=1.0)                # [N,K,2]
-    t = torch.arange(224, device=dev, dtype=torch.float32) + 0.5
-    sx = t * side[..., 0:1] / 224 - 0.5 + b[..., 0:1]             # [N,K,224]
-    sy = t * side[..., 1:2] / 224 - 0.5 + b[..., 1:2]
-    gx = (2 * sx + 1) / FRAME[1] - 1
-    gy = (2 * sy + 1) / FRAME[0] - 1
-    grid = torch.stack([gx[..., None, :].expand(-1, -1, 224, -1),
-                        gy[..., :, None].expand(-1, -1, -1, 224)], -1)
-    grid = grid.reshape(16, 8 * 224, 224, 2)
+    for case, *_ in K2_CASES:
+        frames, boxes, out_hw = k2_case(case, dev)
+        for mirror in (False, True):
+            args = (out_hw, True, norm[0], norm[1], mirror)
+            ref = crop_and_resize_plain(frames, boxes, *args)
+            for dtype, tol in K2_TOLS:
+                e = max_err(crop_and_resize(frames, boxes, *args, dtype), ref)
+                print(f'K2 {case} {tuple(boxes.shape)} -> {out_hw} mirror='
+                      f'{mirror} {dtype}: max |kernel - plain| = {e:.3g} '
+                      f'(tol {tol:.3g})')
+                expect(e <= tol, f'K2 {case} mirror={mirror} {dtype} '
+                       f'disagrees: {e}')
+                err = max(err, e)
+    batches, boxes = serving_inputs(dev)
+    times = k2_times(crop_and_resize, batches, boxes, norm)
+    times.update(library_times(batches, boxes))
+    print('K2 128 crops of 720p to 224² bf16: ' + ', '.join(
+        f'{k} {v}' for k, v in times.items()))
     n_out = boxes.shape[0] * boxes.shape[1] * 224 * 224
     n_bytes = 3 * touched_pixels(boxes, *FRAME[:2], (224, 224)) \
         + boxes.numel() * 4 + n_out * 3 * 2
     n_ops = n_out * 3 * 8
+    frames = batches[0]
     return dict(
-        err=err,
-        ms=time_ms(lambda: crop_and_resize(frames, boxes, *args, False,
-                                           torch.bfloat16), 50),
+        err=err, **times,
         plain_ms=time_ms(lambda: crop_and_resize_plain(
-            frames, boxes, *args, False, torch.bfloat16), 5),
-        library_ms=time_ms(lambda: F.grid_sample(
-            x_f32, grid, mode='bilinear', padding_mode='border',
-            align_corners=False), 20),
+            frames, boxes, (224, 224), True, *norm, False, torch.bfloat16),
+            5),
         bound=bound_ms(n_bytes, n_ops))
 
 
@@ -243,7 +295,10 @@ def compare_dets(out, ref, what):
 # than K candidates per class (zero rows padded); a run of equal scores
 # across the K-th place; K=256 (max_detections 64) and the JAX defaults
 # (K=200, max_per_img 200), above the K up to which the kernel keeps the
-# soft-NMS decays in shared memory.
+# soft-NMS decays in shared memory; the kernel's large-K instantiation at
+# K=512 (max_detections 128: bit rows in shared memory) and K=2044
+# (max_detections 511, the most the 2044 anchors allow: bit rows in the
+# device scratch).
 K3_SOFT = K3_SETTINGS['soft']
 K3_CASES = (('greedy', 16, 'random', {}),
             ('soft', 16, 'random', K3_SOFT),
@@ -259,7 +314,14 @@ K3_CASES = (('greedy', 16, 'random', {}),
             ('jax_defaults', 16, 'random', dict(pre_nms_k=200,
                                                 max_per_img=200)),
             ('jax_defaults_vote', 16, 'random', dict(
-                pre_nms_k=200, max_per_img=200, box_vote_iou=0.6)))
+                pre_nms_k=200, max_per_img=200, box_vote_iou=0.6)),
+            ('k512', 16, 'random', dict(pre_nms_k=512, max_per_img=128)),
+            ('k512_soft', 16, 'random', dict(
+                pre_nms_k=512, max_per_img=128, soft_nms_sigma=0.5,
+                soft_nms_dup_iou=0.8)),
+            ('k2044', 16, 'random', dict(pre_nms_k=2044, max_per_img=511)),
+            ('k2044_vote', 16, 'random', dict(
+                pre_nms_k=2044, max_per_img=511, box_vote_iou=0.6)))
 
 
 def k3_case(case, dev, n=None):
@@ -613,6 +675,33 @@ def path_intermediates(engine, frames_np, plain, norm):
     return e1, e2, e3, e4
 
 
+def wide_path(dev, wrappers, frames_np, plain, norm):
+    """Phase 3b: an engine with max_detections 128 (K3's K=512, as the JAX
+    engine serves it) through ``infer_batch``, with the launch counts set
+    to 0 just before and read just after; its intermediates against the
+    plain versions as phase 3 checks the default engine's."""
+    from tpudet3d_torch.infer import build_engine
+    engine = build_engine(det_conf=0.0, max_detections=128, device=dev)
+    expect(engine.decode_kwargs()['pre_nms_k'] == 512, 'K of max_det 128')
+    for f in wrappers:
+        f.launches = 0
+    batch = engine.infer_batch(frames_np)
+    torch.cuda.synchronize()
+    launches = [f.launches for f in wrappers]
+    expect(len(batch) == len(frames_np), 'infer_batch result count')
+    check_results(batch, *FRAME[:2])
+    n_det = sum(len(r['scores']) for r in batch)
+    print(f'max_detections 128: infer_batch({len(frames_np)}) {n_det} '
+          f'detections, launches K1/K2/K3/K4 = {launches}')
+    expect(n_det > 8 * len(frames_np), 'max_detections 128 kept no more '
+           'than 8 rows a frame')
+    for f, n in zip(wrappers, launches):
+        expect(n > 0, f'{f.__name__} was never launched with max_detections '
+               '128')
+    errs = path_intermediates(engine, frames_np, plain, norm)
+    return dict(launches=launches, detections=n_det, errs=errs)
+
+
 def serving_times(engine, dev, iters):
     h, w = FRAME[:2]
     out = {}
@@ -868,8 +957,7 @@ def run(dev, out_path, iters=20):
                            device=dev, generator=gen)
     k1 = check_k1(dev, frames, (resize_bilinear, resize_bilinear_plain,
                                 resize_weights))
-    k2 = check_k2(dev, frames, (crop_and_resize, crop_and_resize_plain),
-                  norm)
+    k2 = check_k2(dev, (crop_and_resize, crop_and_resize_plain), norm)
     from tpudet3d_torch.detect import generate_anchors
     anchors = torch.from_numpy(generate_anchors()).to(dev)
     k3 = check_k3(dev, (decode_detections, decode_detections_plain),
@@ -890,6 +978,13 @@ def run(dev, out_path, iters=20):
         engine, frames_np, (resize_bilinear_plain, crop_and_resize_plain,
                             decode_detections_plain, crop_and_resize,
                             head_epilogue, head_epilogue_plain), norm)
+
+    # 3b. the serving path with max_detections 128 (K3 at K=512, its
+    # large-K instantiation)
+    wide = wide_path(dev, wrappers, frames_np, (
+        resize_bilinear_plain, crop_and_resize_plain,
+        decode_detections_plain, crop_and_resize, head_epilogue,
+        head_epilogue_plain), norm)
 
     # 4. serving times
     times = serving_times(engine, dev, iters)
@@ -926,6 +1021,10 @@ def run(dev, out_path, iters=20):
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
+    kernels[1].update(ms_cold=k2['ms_cold'], ms_mirror=k2['ms_mirror'],
+                      ms_n1=k2['ms_n1'], device_ms=k2['device_ms'],
+                      device_ms_n1=k2['device_ms_n1'],
+                      library_ms_cold=k2['library_ms_cold'])
     kernels[2].update(ms_soft=k3['ms_soft'], ms_vote=k3['ms_vote'],
                       ms_n1=k3['ms_n1'], device_ms=k3['device_ms'],
                       device_ms_n1=k3['device_ms_n1'])
@@ -950,7 +1049,8 @@ def run(dev, out_path, iters=20):
     if out_path:
         with open(out_path, 'w') as f:
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
-                       'serving': times, 'evaluation': evaluation,
+                       'serving': times, 'max_det_128': wide,
+                       'evaluation': evaluation,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)
     print(json.dumps({'ok': True, 'device': {

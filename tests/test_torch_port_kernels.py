@@ -5,13 +5,14 @@ machine with the card it runs without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
 Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]), on every shape
-the port feeds it (chip_smoke.K1_CASES); K2 f32 1e-4 (normalised values,
-fused multiply-adds in the kernel); K3 scores 1e-6 and boxes 1e-3 px (only
+the port feeds it (chip_smoke.K1_CASES); K2 f32 1e-4 and bf16 2^-7 + 1e-4
+(normalised values, fused multiply-adds in the kernel), on the box and
+frame cases of chip_smoke.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
 the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact; K5 1e-5 (kernel and plain version compute the same float32
 operations in the same order).
 
-The K1 shapes, the K3 cases and the K4 and K5 inputs come from
+The K1 shapes, the K2 and K3 cases and the K4 and K5 inputs come from
 chip_smoke.py, so these
 tests, the card smoke and the CPU parity tests (tests/test_torch_port_eval.py,
 tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
@@ -29,8 +30,9 @@ from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
-from chip_smoke import (K1_CASES, K1_TOLS, K3_CASES, K4_REFINE, k1_frames,
-                        k3_case, k4_inputs, k5_exact_cases, k5_fuzz_pairs)
+from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
+                        K4_REFINE, k1_frames, k2_case, k3_case, k4_inputs,
+                        k5_exact_cases, k5_fuzz_pairs)
 from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 
@@ -54,14 +56,20 @@ def test_k1_kernel_matches_plain(cuda, case, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype,atol', K2_TOLS)
+@pytest.mark.parametrize('case', ['random'] + [c[0] for c in K2_CASES])
 @pytest.mark.parametrize('mirror', [False, True])
-def test_k2_kernel_matches_plain(cuda, mirror):
-    frames = torch.from_numpy(frame_batch(2, 720, 1280)).to(cuda)
-    boxes = torch.from_numpy(random_boxes(2, 8, 720, 1280)).to(cuda)
-    args = ((224, 224), True, REG_SCALE, REG_OFFSET, mirror)
-    out = crop_and_resize(frames, boxes, *args, dtype=torch.float32)
+def test_k2_kernel_matches_plain(cuda, mirror, case, dtype, atol):
+    if case == 'random':
+        frames = torch.from_numpy(frame_batch(2, 720, 1280)).to(cuda)
+        boxes = torch.from_numpy(random_boxes(2, 8, 720, 1280)).to(cuda)
+        out_hw = (224, 224)
+    else:
+        frames, boxes, out_hw = k2_case(case, cuda)
+    args = (out_hw, True, REG_SCALE, REG_OFFSET, mirror)
+    out = crop_and_resize(frames, boxes, *args, dtype=dtype)
     ref = crop_and_resize_plain(frames, boxes, *args)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)
 
 
 @pytest.mark.cuda

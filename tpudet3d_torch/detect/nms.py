@@ -23,7 +23,7 @@ from .assigner import iou_xyxy
 from .coder import decode_boxes
 
 __all__ = ['greedy_nms', 'soft_nms', 'decode_detections_plain',
-           'decode_detections', 'decode_nms_smem']
+           'decode_detections', 'decode_nms_plan', 'decode_nms_check']
 
 
 def greedy_nms(boxes, scores, iou_thr=0.45):
@@ -125,10 +125,13 @@ def decode_detections_plain(cls_logits, bbox_deltas, anchors, score_thr=0.02,
     return torch.cat([boxes, final_scores[..., None], labels[..., None]], -1)
 
 
-# limits of the kernel (kernels/csrc/decode_nms.cu): K, classes per image
-# (the size of a thread-block cluster), K up to which the soft-NMS decays
-# stay in shared memory, and the shared memory a CTA may have
-MAX_K = 256
+# limits of the kernel (kernels/csrc/decode_nms.cu): K (two words of
+# removed bits per lane in the greedy chain), K up to which the first
+# instantiation runs, classes per image (the size of a thread-block
+# cluster), K up to which the soft-NMS decays stay in shared memory, and
+# the shared memory a CTA may have
+MAX_K = 2048
+SMALL_K = 256
 MAX_CLASSES = 16
 DECAY_MATRIX_MAX_K = 128
 SMEM_LIMIT = 232448
@@ -138,35 +141,48 @@ def _up16(b):
     return (b + 15) // 16 * 16
 
 
-def decode_nms_smem(a, c, k, max_det):
-    """Shared-memory bytes of one K3 CTA for A anchors, C classes, top K
-    and ``max_det`` rows (the kernel's ``make_layout``, which the C entry
-    checks against this): the logits of the CTA's slice of ⌈A/C⌉ anchors,
-    later the soft-NMS decays (up to K = 128) and greedy bit rows, later
+def decode_nms_plan(a, c, k, max_det):
+    """Shared-memory bytes of one K3 CTA and words of device scratch per
+    CTA for A anchors, C classes, top K and ``max_det`` rows (the kernel's
+    ``make_layout``, which the C entry checks against this).  The bytes:
+    the logits of the CTA's slice of ⌈A/C⌉ anchors, later the soft-NMS
+    decays (up to K = 128) and the greedy bit rows (K·⌈K/32⌉ words), later
     the other classes' first min(K, max_det) scores; the score bits of all
-    A anchors; two 256-bin histograms; 64 scalars; 15 words per
-    candidate."""
+    A anchors; two 256-bin histograms; 64 scalars; 15 words per candidate.
+    Above K = 256, where the bit rows would not fit they move to a device
+    scratch of K·⌈K/32⌉ words per CTA: N·C·K·⌈K/32⌉ words in all, 75 MB at
+    N = 16, C = 9, K = 2044 (from about K = 1110 at A = 2044)."""
     w = (k + 31) // 32
+    logits = ((a + c - 1) // c * (c + 1) + 4) * 4
+    lists = c * min(k, max_det) * 4
+    tail = _up16(a * 4) + 2 * 256 * 4 + 64 * 4 + k * 60
     nms = (k * k * 4 if k <= DECAY_MATRIX_MAX_K else 0) + k * w * 4
-    region0 = max(((a + c - 1) // c * (c + 1) + 4) * 4, nms,
-                  c * min(k, max_det) * 4)
-    return _up16(region0) + _up16(a * 4) + 2 * 256 * 4 + 64 * 4 + k * 60
+    scratch = 0
+    if k > SMALL_K and _up16(max(logits, nms, lists)) + tail > SMEM_LIMIT:
+        nms, scratch = 0, k * w
+    return _up16(max(logits, nms, lists)) + tail, scratch
 
 
-def decode_detections(cls_logits, bbox_deltas, anchors, score_thr=0.02,
-                      iou_thr=0.45, max_per_img=200, pre_nms_k=200,
-                      soft_nms_sigma=0.0, soft_nms_dup_iou=1.0,
-                      box_vote_iou=0.0):
-    """K3: see :func:`decode_detections_plain`.  On the card the inputs are
-    contiguous float32 tensors on one device; one launch, a thread-block
-    cluster of the C class CTAs per image."""
-    args = (score_thr, iou_thr, max_per_img, pre_nms_k, soft_nms_sigma,
-            soft_nms_dup_iou, box_vote_iou)
-    if cls_logits.device.type == 'cpu':
-        return decode_detections_plain(cls_logits, bbox_deltas, anchors,
-                                       *args)
-    if cls_logits.device.type != 'cuda':
-        raise ValueError(f'unsupported device {cls_logits.device}')
+def decode_nms_check(n, a, c, k, max_det):
+    """Refuses (``ValueError``) the shapes that K3 does not take, as its C
+    entry does; returns :func:`decode_nms_plan`'s (bytes, scratch words)."""
+    if not 0 < c <= MAX_CLASSES or not 0 < k <= min(a, MAX_K) \
+            or not 0 < max_det <= c * k or not 0 < n:
+        raise ValueError(f'unsupported pre_nms_k={k} / max_per_img='
+                         f'{max_det} for N={n}, A={a}, C={c} (K up to '
+                         f'min(A, MAX_K={MAX_K}), C up to {MAX_CLASSES})')
+    smem, scratch = decode_nms_plan(a, c, k, max_det)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'A={a}, C={c}, K={k} need {smem} bytes of shared '
+                         f'memory, more than SMEM_LIMIT={SMEM_LIMIT}')
+    return smem, scratch
+
+
+def _launch(cls_logits, bbox_deltas, anchors, score_thr, iou_thr,
+            max_per_img, pre_nms_k, soft_nms_sigma, soft_nms_dup_iou,
+            box_vote_iou):
+    """Checks the inputs, allocates the output and the scratch and calls
+    the C entry on ``cls_logits``' device."""
     n, a, c1 = cls_logits.shape
     c, k = c1 - 1, pre_nms_k
     for t, shape in ((cls_logits, (n, a, c1)), (bbox_deltas, (n, a, 4)),
@@ -176,23 +192,37 @@ def decode_detections(cls_logits, bbox_deltas, anchors, score_thr=0.02,
             raise ValueError(f'expected contiguous float32 {shape} on '
                              f'{cls_logits.device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    if not 0 < c <= MAX_CLASSES or not 0 < k <= min(a, MAX_K) \
-            or not 0 < max_per_img <= c * k or not 0 < n:
-        raise ValueError(f'unsupported pre_nms_k={k} / max_per_img='
-                         f'{max_per_img} for N={n}, A={a}, C={c}')
-    smem = decode_nms_smem(a, c, k, max_per_img)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'A={a}, C={c}, K={k} need {smem} bytes of shared '
-                         f'memory, more than {SMEM_LIMIT}')
+    smem, scratch_words = decode_nms_check(n, a, c, k, max_per_img)
     out = torch.empty((n, max_per_img, 6), dtype=torch.float32,
                       device=cls_logits.device)
+    scratch = torch.empty((n * c * scratch_words,), dtype=torch.int32,
+                          device=cls_logits.device)
     inv_sigma = _inv(soft_nms_sigma) if soft_nms_sigma > 0.0 else 0.0
     err = library().tpd_decode_nms(
         cls_logits.data_ptr(), bbox_deltas.data_ptr(), anchors.data_ptr(),
-        out.data_ptr(), n, a, c, k, max_per_img, score_thr, iou_thr,
-        inv_sigma, soft_nms_dup_iou, box_vote_iou, math.log(16.0), smem,
+        out.data_ptr(), scratch.data_ptr() if scratch_words else None, n, a,
+        c, k, max_per_img, score_thr, iou_thr, inv_sigma, soft_nms_dup_iou,
+        box_vote_iou, math.log(16.0), smem, scratch_words,
         *stream_args(cls_logits))
     check(err, 'decode_detections')
+    return out
+
+
+def decode_detections(cls_logits, bbox_deltas, anchors, score_thr=0.02,
+                      iou_thr=0.45, max_per_img=200, pre_nms_k=200,
+                      soft_nms_sigma=0.0, soft_nms_dup_iou=1.0,
+                      box_vote_iou=0.0):
+    """K3: see :func:`decode_detections_plain`.  On the card the inputs are
+    contiguous float32 tensors on one device; one launch, a thread-block
+    cluster of the C class CTAs per image, for every K up to min(A, 2048)."""
+    args = (score_thr, iou_thr, max_per_img, pre_nms_k, soft_nms_sigma,
+            soft_nms_dup_iou, box_vote_iou)
+    if cls_logits.device.type == 'cpu':
+        return decode_detections_plain(cls_logits, bbox_deltas, anchors,
+                                       *args)
+    if cls_logits.device.type != 'cuda':
+        raise ValueError(f'unsupported device {cls_logits.device}')
+    out = _launch(cls_logits, bbox_deltas, anchors, *args)
     decode_detections.launches += 1
     return out
 

@@ -40,9 +40,10 @@ SIGNATURES = {
     'tpd_resize_bilinear_u8': (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _F,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     'tpd_crop_resize_u8': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                           _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-    'tpd_decode_nms': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _I, _I, _P),
+                           _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    'tpd_decode_nms': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
     'tpd_head_epilogue': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F,
                           _F, _F, _F, _F, _F, _I, _P),
     'tpd_box3d_iou': (_P, _P, _P, _I, _I, _P),

@@ -48,6 +48,17 @@
 // IEEE operations in the same order as the plain PyTorch version (no fused
 // multiply-adds there), so the two agree bit for bit on the card except in
 // the box-vote sums.
+//
+// K above 256 (max_det above 64 on the serving path; lax.top_k takes any
+// K <= A) runs a second instantiation of the same kernel, kLarge: the
+// rank sort, decode, list and merge loop over the candidates; the greedy
+// chain keeps two words of removed bits per lane (K <= 2048) and ORs each
+// kept box's row into the later words with coalesced loads; soft-NMS
+// decays the scores in place in shared memory (64 slots per lane); the
+// bit rows skip the words left of the diagonal.  The rows (K * ceil(K/32)
+// words) stay in shared memory while the CTA's layout fits, which is up
+// to about K = 1100 at A = 2044; above that they go to a device scratch that
+// the wrapper allocates, N * C * K * ceil(K/32) words.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -59,8 +70,9 @@ namespace {
 
 constexpr int kThreads = 256;  // the radix scan takes one bin per thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 256;
-constexpr int kSlots = kMaxK / 32;   // scores per lane in the soft-NMS warp
+constexpr int kSmallK = 256;        // the first instantiation's K
+constexpr int kMaxK = 2048;         // two words of removed bits per lane
+constexpr int kSlots = kSmallK / 32; // scores per lane in the soft-NMS warp
 constexpr int kMatrixMaxK = 128;     // decays in shared memory up to this K
 constexpr int kMaxCluster = 16;      // classes per image (cluster size)
 constexpr int kMaxSmem = 232448;
@@ -73,23 +85,32 @@ struct Params {
 
 __host__ __device__ inline int up16(int b) { return (b + 15) & ~15; }
 
-// Byte offsets of the shared-memory regions; detect/nms.py
-// decode_nms_smem computes the same total.  Region 0 holds the CTA's
-// slice of logits, then the soft-NMS decays and the greedy bit rows, then
-// the other classes' score lists.
+// Byte offsets of the shared-memory regions and the words of device
+// scratch per CTA; detect/nms.py decode_nms_plan computes the same total
+// and words.  Region 0 holds the CTA's slice of logits, then the soft-NMS
+// decays and the greedy bit rows, then the other classes' score lists.
+// Above kSmallK there are no decays, and the bit rows move to the scratch
+// when they would not fit.
 struct Layout {
-  int key, hist, misc, perk, bytes;
+  int key, hist, misc, perk, bytes, scratch;
 };
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline Layout make_layout(int a, int c, int k,
                                               int max_det) {
   const int w = (k + 31) / 32, m = k < max_det ? k : max_det;
-  const int nms = (k <= kMatrixMaxK ? k * k * 4 : 0) + k * w * 4;
-  int r0 = ((a + c - 1) / c * (c + 1) + 4) * 4;
-  r0 = r0 > nms ? r0 : nms;
-  r0 = r0 > c * m * 4 ? r0 : c * m * 4;
+  const int logits = ((a + c - 1) / c * (c + 1) + 4) * 4;
+  const int tail = up16(a * 4) + 2 * 256 * 4 + 64 * 4 + k * 60;
+  int nms = (k <= kMatrixMaxK ? k * k * 4 : 0) + k * w * 4;
   Layout l;
-  l.key = up16(r0);                 // [A] score bits
+  l.scratch = 0;
+  if (k > kSmallK &&
+      up16(imax(imax(logits, nms), c * m * 4)) + tail > kMaxSmem) {
+    nms = 0;
+    l.scratch = k * w;
+  }
+  l.key = up16(imax(imax(logits, nms), c * m * 4));  // [A] score bits
   l.hist = l.key + up16(a * 4);     // [2][256] radix histograms
   l.misc = l.hist + 2 * 256 * 4;    // [64] scan totals and scalars
   l.perk = l.misc + 64 * 4;         // 15 words per candidate
@@ -153,23 +174,126 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// grid (C, N), cluster (C, 1, 1): CTA c of cluster n is class c of image n
+// Greedy NMS over the bit rows for K up to kMaxK, by one warp: lane l
+// holds words l and l + 32 of the removed bits.  Word by word, lane 0 runs
+// the chain over the word's 32 boxes with their rows in registers (zero
+// scores start removed), then every lane ORs the kept boxes' rows into its
+// later words, a row's words read by consecutive lanes.
+__device__ __forceinline__ void greedy_chain_large(
+    const float* s_top, const unsigned* mask, float* s_kept, int* s_ord,
+    int* s_ns, int K, int W, int lane) {
+  unsigned rem0 = 0u, rem1 = 0u;
+  int ns = 0;
+  for (int w = 0; w < W; ++w) {
+    const int i = 32 * w + lane;
+    const bool pos = i < K && s_top[i] > 0.f;
+    unsigned cur = __shfl_sync(0xffffffffu, w < 32 ? rem0 : rem1, w & 31) |
+                   ~__ballot_sync(0xffffffffu, pos);
+    if (lane == 0) {
+      unsigned rows[32];
+#pragma unroll
+      for (int b = 0; b < 32; ++b)
+        rows[b] = 32 * w + b < K ? mask[(size_t)(32 * w + b) * W + w] : 0u;
+#pragma unroll
+      for (int b = 0; b < 32; ++b)
+        cur |= rows[b] & (((cur >> b) & 1u) - 1u);
+    }
+    const unsigned kept = ~__shfl_sync(0xffffffffu, cur, 0);
+    const bool kept_i = (kept >> lane) & 1u;
+    if (kept_i) s_ord[ns + __popc(kept & ((1u << lane) - 1u))] = i;
+    if (i < K) s_kept[i] = kept_i ? s_top[i] : 0.f;
+    ns += __popc(kept);
+    const bool own0 = lane > w && lane < W;
+    const bool own1 = lane + 32 > w && lane + 32 < W;
+#pragma unroll 8
+    for (int b = 0; b < 32; ++b) {
+      if (!((kept >> b) & 1u)) continue;
+      const unsigned* row = mask + (size_t)(32 * w + b) * W;
+      if (own0) rem0 |= row[lane];
+      if (own1) rem1 |= row[lane + 32];
+    }
+  }
+  if (lane == 0) *s_ns = ns;
+}
+
+// Gaussian soft-NMS for K up to kMaxK, by one warp, on the scores in
+// s_kept (decayed in place): lane l holds slots j = l + 32 r, bit r of
+// done marks slot r processed.  Each round takes the highest unprocessed
+// score (lowest index among equals) by two warp reductions and decays the
+// others by exp(-iou^2 / sigma), 0 above the duplicate cutoff, computing
+// the IoUs on the fly; it stops at the first round whose best score is at
+// or below the floor.  The processed scores are the survivors.
+__device__ __forceinline__ void soft_nms_large(
+    const float* s_top, const float* s_box, float* s_kept, int* s_ord,
+    int* s_ns, int K, int W, int lane, const Params& prm) {
+  unsigned long long done = 0ull;
+  for (int r = 0; r < W; ++r) {
+    const int j = 32 * r + lane;
+    if (j < K)
+      s_kept[j] = s_top[j];
+    else
+      done |= 1ull << r;
+  }
+  const float stop = fmaxf(prm.score_thr, 0.f);
+  int ns = 0;
+  for (int round = 0; round < K; ++round) {
+    unsigned best = 0u;
+    int bj = 0x7fffffff;
+    for (int r = 0; r < W; ++r) {
+      if ((done >> r) & 1ull) continue;
+      const unsigned v = __float_as_uint(s_kept[32 * r + lane]);
+      if (v > best) {
+        best = v;
+        bj = 32 * r + lane;
+      }
+    }
+    const unsigned top = __reduce_max_sync(0xffffffffu, best);
+    if (!(__uint_as_float(top) > stop)) break;
+    const int bi = (int)__reduce_min_sync(
+        0xffffffffu, best == top ? (unsigned)bj : 0xffffffffu);
+    if (lane == 0) s_ord[ns] = bi;
+    ++ns;
+    const float* bb = s_box + 4 * bi;
+    for (int r = 0; r < W; ++r) {
+      const int j = 32 * r + lane;
+      if ((done >> r) & 1ull || j == bi) continue;
+      const float o = iou(bb, s_box + 4 * j);
+      const float dcy =
+          o > prm.dup_iou ? 0.f
+                          : expf(__fmul_rn(-__fmul_rn(o, o), prm.inv_sigma));
+      s_kept[j] = __fmul_rn(s_kept[j], dcy);
+    }
+    if ((bi & 31) == lane) done |= 1ull << (bi >> 5);
+  }
+  for (int r = 0; r < W; ++r) {
+    const int j = 32 * r + lane;
+    if (j < K && !((done >> r) & 1ull)) s_kept[j] = 0.f;
+  }
+  if (lane == 0) *s_ns = ns;
+}
+
+// grid (C, N), cluster (C, 1, 1): CTA c of cluster n is class c of image
+// n.  kLarge: K above kSmallK (see the note at the top).
+template <bool kLarge>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_nms_kernel(const float* __restrict__ logits,
                       const float* __restrict__ deltas,
                       const float* __restrict__ anchors,
-                      float* __restrict__ out, int A, int C, int K,
-                      int max_det, Params prm, Layout L) {
+                      float* __restrict__ out, unsigned* __restrict__ scratch,
+                      int A, int C, int K, int max_det, Params prm,
+                      Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   const bool soft = prm.inv_sigma > 0.f, vote = prm.vote_iou > 0.f;
-  const bool full = K <= kMatrixMaxK;
+  const bool full = !kLarge && K <= kMatrixMaxK;
   const int W = (K + 31) >> 5, M = min(K, max_det);
   // region 0: the CTA's slice of logits, then the soft-NMS decays [K, K]
-  // (up to kMatrixMaxK) and the greedy bit rows [K, W], then the first M
-  // scores of every class [C, M]
+  // (up to kMatrixMaxK) and the greedy bit rows [K, W] (or the rows in the
+  // device scratch), then the first M scores of every class [C, M]
   float* stage = reinterpret_cast<float*>(smem);
   float* decay_m = stage;
   unsigned* mask = reinterpret_cast<unsigned*>(smem) + (full ? K * K : 0);
+  if (kLarge && L.scratch)
+    mask = scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * L.scratch;
   float* all_sc = stage;
   unsigned* key = reinterpret_cast<unsigned*>(smem + L.key);
   int* hist = reinterpret_cast<int*>(smem + L.hist);
@@ -303,9 +427,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // 5. rank sort of the picks by (score desc, index asc), and the delta
   // decode of each pick into its sorted place (coder.decode_boxes,
   // DEFAULT_STDS)
-  if (tid < K) {
-    const unsigned v = cand_key[tid];
-    const int ia = cand_idx[tid];
+  for (int t = tid; t < K; t += kThreads) {
+    const unsigned v = cand_key[t];
+    const int ia = cand_idx[t];
     // the pick's anchor and deltas, loaded before the rank loop
     const float* pa = anchors + (size_t)ia * 4;
     const float* pd = deltas + ((size_t)n * A + ia) * 4;
@@ -352,6 +476,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   } else {
     for (int task = warp; task < K * W; task += kWarps) {
       const int i = task / W, j = 32 * (task - i * W) + lane;
+      // a word wholly left of the diagonal holds no bit
+      if (kLarge && j - lane + 31 <= i) {
+        if (lane == 0) mask[task] = 0u;
+        continue;
+      }
       const bool b = j > i && j < K &&
                      iou(s_box + 4 * i, s_box + 4 * j) > prm.iou_thr;
       const unsigned word = __ballot_sync(0xffffffffu, b);
@@ -362,7 +491,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // 7. the NMS chain; s_ord lists the survivors in the order they were
   // kept, which is (score desc, index asc)
-  if (!soft) {
+  if constexpr (kLarge) {
+    if (warp == 0) {
+      if (!soft)
+        greedy_chain_large(s_top, mask, s_kept, s_ord, s_ns, K, W, lane);
+      else
+        soft_nms_large(s_top, s_box, s_kept, s_ord, s_ns, K, W, lane, prm);
+    }
+  } else if (!soft) {
     if (warp == 0) {
       // word by word: lane w2 holds word w2 of the removed bits; lane 0
       // runs the chain over the word's 32 boxes with their rows in
@@ -481,16 +617,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // 9. the class's list in merge order: the survivors in s_ord order,
-  // then the other candidates with score 0 in index order
-  const bool zero = tid < K && !(s_kept[tid] > 0.f);
-  const int zpos = block_scan_excl(zero, s_tot);
-  if (tid < ns) {
-    l_score[tid] = s_kept[s_ord[tid]];
-    l_j[tid] = s_ord[tid];
+  // then the other candidates with score 0 in index order, kThreads
+  // candidates per scan
+  for (int base = 0, zeros = 0; base < (kLarge ? K : 1); base += kThreads) {
+    const int t = base + tid;
+    const bool zero = t < K && !(s_kept[t] > 0.f);
+    const int zpos = zeros + block_scan_excl(zero, s_tot);
+    if (zero) {
+      l_score[ns + zpos] = 0.f;
+      l_j[ns + zpos] = t;
+    }
+    if (kLarge) {
+      for (int w = 0; w < kWarps; ++w) zeros += s_tot[w];
+      __syncthreads();   // before the next scan writes s_tot
+    }
   }
-  if (zero) {
-    l_score[ns + zpos] = 0.f;
-    l_j[ns + zpos] = tid;
+  for (int t = tid; t < ns; t += kThreads) {
+    l_score[t] = s_kept[s_ord[t]];
+    l_j[t] = s_ord[t];
   }
   cluster.sync();
 
@@ -507,9 +651,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // in its own list plus the entries of other classes that beat it
   // (higher score, or equal score and a lower class: the flat index
   // order of the plain version's stable sort)
-  if (tid < M) {
-    const float s = l_score[tid];
-    int rank = tid;
+  for (int t = tid; t < M; t += kThreads) {
+    const float s = l_score[t];
+    int rank = t;
     for (int cc = 0; cc < C; ++cc) {
       if (cc == c) continue;
       const float* lst = all_sc + cc * M;
@@ -525,7 +669,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       rank += lo;
     }
     if (rank < max_det) {
-      const int j = l_j[tid];
+      const int j = l_j[t];
       const float* b =
           prm.vote_iou > 0.f && s > 0.f ? s_vbox + 4 * j : s_box + 4 * j;
       float* o = out + ((size_t)n * max_det + rank) * 6;
@@ -539,46 +683,32 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-}  // namespace
 
-// smem_bytes comes from detect/nms.py decode_nms_smem; the entry refuses
-// a mismatch with its own layout and any shape the kernel does not take.
-extern "C" int tpd_decode_nms(const void* logits, const void* deltas,
-                              const void* anchors, void* out, int n, int a,
-                              int c, int k, int max_det, float score_thr,
-                              float iou_thr, float inv_sigma, float dup_iou,
-                              float vote_iou, float log_clip, int smem_bytes,
-                              int device, void* stream) {
-  if (n < 1 || a < 1 || a >= 65536 || c < 1 || c > kMaxCluster || k < 1 ||
-      k > kMaxK || k > a || max_det < 1 || max_det > c * k)
-    return (int)cudaErrorInvalidValue;
-  const Layout l = make_layout(a, c, k, max_det);
-  if (l.bytes != smem_bytes || l.bytes > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+template <bool kLarge>
+int launch(const float* logits, const float* deltas, const float* anchors,
+           float* out, unsigned* scratch, int n, int a, int c, int k,
+           int max_det, const Params& prm, const Layout& l, int device,
+           cudaStream_t stream) {
   // the dynamic shared memory opted into so far, per device
   static int opted[64] = {};
+  cudaError_t err;
   if (l.bytes > opted[device]) {
-    err = cudaFuncSetAttribute(decode_nms_kernel,
+    err = cudaFuncSetAttribute(decode_nms_kernel<kLarge>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                l.bytes);
     if (err != cudaSuccess) return (int)err;
     // clusters of more than 8 CTAs (9 classes) are not portable
-    err = cudaFuncSetAttribute(decode_nms_kernel,
+    err = cudaFuncSetAttribute(decode_nms_kernel<kLarge>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return (int)err;
     opted[device] = l.bytes;
   }
-  const Params prm = {score_thr, iou_thr, inv_sigma, dup_iou, vote_iou,
-                      log_clip};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c, n);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = l.bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = c;
@@ -586,11 +716,46 @@ extern "C" int tpd_decode_nms(const void* logits, const void* deltas,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_nms_kernel,
-                           static_cast<const float*>(logits),
-                           static_cast<const float*>(deltas),
-                           static_cast<const float*>(anchors),
-                           static_cast<float*>(out), a, c, k, max_det, prm, l);
+  err = cudaLaunchKernelEx(&cfg, decode_nms_kernel<kLarge>, logits, deltas,
+                           anchors, out, scratch, a, c, k, max_det, prm, l);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// smem_bytes and scratch_words (per CTA) come from detect/nms.py
+// decode_nms_plan; the entry refuses a mismatch with its own layout and
+// any shape the kernel does not take.  scratch holds n * c *
+// scratch_words words when scratch_words is not 0.
+extern "C" int tpd_decode_nms(const void* logits, const void* deltas,
+                              const void* anchors, void* out, void* scratch,
+                              int n, int a, int c, int k, int max_det,
+                              float score_thr, float iou_thr, float inv_sigma,
+                              float dup_iou, float vote_iou, float log_clip,
+                              int smem_bytes, int scratch_words, int device,
+                              void* stream) {
+  if (n < 1 || a < 1 || a >= 65536 || c < 1 || c > kMaxCluster || k < 1 ||
+      k > kMaxK || k > a || max_det < 1 || max_det > c * k)
+    return (int)cudaErrorInvalidValue;
+  const Layout l = make_layout(a, c, k, max_det);
+  if (l.bytes != smem_bytes || l.bytes > kMaxSmem ||
+      l.scratch != scratch_words || (l.scratch && !scratch))
+    return (int)cudaErrorInvalidValue;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Params prm = {score_thr, iou_thr, inv_sigma, dup_iou, vote_iou,
+                      log_clip};
+  const float* lg = static_cast<const float*>(logits);
+  const float* dl = static_cast<const float*>(deltas);
+  const float* an = static_cast<const float*>(anchors);
+  float* o = static_cast<float*>(out);
+  unsigned* sc = static_cast<unsigned*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > kSmallK)
+    return launch<true>(lg, dl, an, o, sc, n, a, c, k, max_det, prm, l,
+                        device, s);
+  return launch<false>(lg, dl, an, o, sc, n, a, c, k, max_det, prm, l,
+                       device, s);
 }

@@ -8,7 +8,9 @@ Two kernels live here, each as a plain PyTorch version and a wrapper:
   :func:`resize_plan` sizes its shared memory).
 * K2 ``crop_and_resize``: boxes of uint8 NHWC frames → bilinear crops with
   cv2 pixel-centre sampling, border clamp, per-channel ``x*scale - offset``
-  and an optional mirrored copy for TTA (``kernels/csrc/crop.cu``).
+  and an optional mirrored copy for TTA (``kernels/csrc/crop.cu``, one CTA
+  per band of output rows of a crop, staged in passes; :func:`crop_plan`
+  sizes its shared memory, :func:`crop_passes` states its passes).
 
 A wrapper runs the plain version only for a tensor on the CPU; on a CUDA
 tensor it launches the kernel or raises.  ``wrapper.launches`` counts the
@@ -25,13 +27,18 @@ from ..kernels.build import check, library, stream_args
 
 __all__ = ['resize_weights', 'resize_bilinear_plain', 'resize_bilinear',
            'resize_windows', 'staged_ranges', 'resize_footprint',
-           'resize_plan', 'crop_and_resize_plain', 'crop_and_resize']
+           'resize_plan', 'crop_taps', 'crop_footprint', 'crop_plan',
+           'crop_stage_rows', 'crop_passes', 'crop_and_resize_plain',
+           'crop_and_resize']
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448        # shared bytes a CTA may opt into on the H100
 K1_TILE_X = 32
 K1_COL_ALIGN = 4           # a tile's first staged column is a multiple of it
 K1_TILE_Y = (16, 8, 4, 2, 1)   # tried in this order until the tile fits
+K2_RUN = 8                 # output pixels per thread (three 16-byte stores)
+K2_BANDS = (16, 8, 4, 2, 1)  # output rows per CTA, tried in this order
+K2_STAGE_BYTES = 32768     # a K2 CTA's staged source rows (at least two)
 
 
 def resize_weights(in_size, out_size, device=None):
@@ -184,6 +191,112 @@ def resize_bilinear(frames, out_hw, reverse_channels=False, scale=1.0,
 resize_bilinear.launches = 0
 
 
+def crop_taps(size_out, side, start, size_in):
+    """Source taps of a crop along one axis: for boxes with sides ``side``
+    and starts ``start`` (float32 ``[...]``), output ``o`` samples ``s = (o
+    + 0.5) * side/size_out - 0.5 + start`` clamped to ``[0, size_in - 1]``
+    → (first index ``[..., size_out]``, second index, second's weight).
+    XLA's arithmetic, which K2 repeats: side / size_out as a product with
+    the f32 reciprocal, and (o + 0.5) * step - 0.5 as one fused
+    multiply-add (emulated in float64: the product is exact)."""
+    step = side * _recip(size_out)
+    dst = torch.arange(size_out, dtype=torch.float32,
+                       device=side.device) + 0.5
+    s = (dst.double() * step[..., None].double() - 0.5).float()
+    s = s + start[..., None]
+    s = s.clamp(0.0, size_in - 1.0)
+    f = s.floor()
+    i0 = f.long()
+    return i0, (i0 + 1).clamp(max=size_in - 1), s - f
+
+
+CropFootprint = namedtuple('CropFootprint', 'band runs stride smem_bytes')
+
+
+def crop_footprint(w, ow, band):
+    """K2's shared memory for CTAs of ``band`` output rows of ``ow`` columns
+    from frames ``w`` pixels wide (``crop.cu``'s ``make_layout``): a float2
+    tap entry per output column, padded to ``runs`` runs of K2_RUN, and a
+    float4 per band row, then the stage: K2_STAGE_BYTES, or two rows of
+    ``stride`` bytes where that is more.  ``stride`` is the widest staged
+    row: a whole frame row (a box may span it), its shift inside a 16-byte
+    chunk and the three words read at its last pixel's taps."""
+    runs = -(-ow // K2_RUN)
+    stride = _align16(3 * w + 24)
+    tables = _align16(8 * K2_RUN * runs + 16 * band)
+    return CropFootprint(band, runs, stride,
+                         tables + max(K2_STAGE_BYTES, 2 * stride))
+
+
+@functools.lru_cache(maxsize=64)
+def crop_plan(w, oh, ow, crops, sms):
+    """The footprint of the tallest band in :data:`K2_BANDS` whose grid
+    (``crops`` × bands of ``oh`` rows) gives each of ``sms`` SMs two CTAs,
+    else of the shortest; raises ``ValueError`` if it does not fit in
+    :data:`SMEM_LIMIT` (two frame rows are too wide to stage)."""
+    band = next((b for b in K2_BANDS if crops * -(-oh // b) >= 2 * sms),
+                K2_BANDS[-1])
+    fp = crop_footprint(w, ow, band)
+    if fp.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f'crop of frames {w} px wide to {ow} columns: two '
+                         f'staged rows of {3 * w} bytes need '
+                         f'{fp.smem_bytes} bytes of shared memory, more than '
+                         f'SMEM_LIMIT={SMEM_LIMIT}')
+    return fp
+
+
+def crop_stage_rows(fp, c0, c1):
+    """The source rows that a pass of K2 stages at once for a box whose
+    taps span columns ``c0`` to ``c1``: the stage's bytes over a row of the
+    span (``3 * (c1 - c0 + 1)`` bytes, its shift and the read past its
+    last pixel), at least two."""
+    return (fp.smem_bytes - _align16(8 * K2_RUN * fp.runs + 16 * fp.band)) \
+        // _align16(3 * (c1 - c0 + 1) + 24)
+
+
+def crop_passes(iy0, iy1, band, cap):
+    """K2's passes over one crop's output rows, given the rows' taps (numpy,
+    from :func:`crop_taps`), bands of ``band`` rows and ``cap`` staged rows
+    a pass (:func:`crop_stage_rows`): a list of (first output row, staged
+    source rows, staged index of each output row's top row, of its bottom
+    row).  A pass takes the band's remaining rows when their rows fit, else
+    the most that do; it stages the rows from its first top row to its
+    last bottom row when they are at most two per output row, else a top
+    and a bottom row per output row."""
+    out = []
+    for b0 in range(0, len(iy0), band):
+        nrow, r0 = min(band, len(iy0) - b0), 0
+        while r0 < nrow:
+            first = b0 + r0
+            lo = int(iy0[first])
+
+            def rows(m):
+                return int(iy1[first + m - 1]) - lo + 1
+
+            def need(m):
+                return min(rows(m), 2 * m)
+            m = nrow - r0
+            if need(m) > cap:
+                m = 1
+                while need(m + 1) <= cap:
+                    m += 1
+            t0, t1 = iy0[first:first + m], iy1[first:first + m]
+            if rows(m) <= 2 * m:
+                out.append((first, np.arange(lo, lo + rows(m)), t0 - lo,
+                            t1 - lo))
+            else:
+                idx = 2 * np.arange(m)
+                out.append((first, np.stack([t0, t1], 1).reshape(-1), idx,
+                            idx + 1))
+            r0 += m
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def crop_and_resize_plain(frames, boxes, out_hw=(224, 224),
                           reverse_channels=False, scale=(1.0, 1.0, 1.0),
                           offset=(0.0, 0.0, 0.0), mirror=False,
@@ -205,22 +318,8 @@ def crop_and_resize_plain(frames, boxes, out_hw=(224, 224),
     bw = (x1 - x0).clamp(min=1.0)
     bh = (y1 - y0).clamp(min=1.0)
     dev = frames.device
-
-    def sample(size_out, side, start, size_in):
-        # XLA's arithmetic, which the kernel repeats: side / size_out as a
-        # product with the f32 reciprocal, and (dst + 0.5) * step - 0.5 as
-        # one fused multiply-add (emulated in float64: the product is exact)
-        step = side * _recip(size_out)
-        dst = torch.arange(size_out, dtype=torch.float32, device=dev) + 0.5
-        s = (dst.double() * step[..., None].double() - 0.5).float()
-        s = s + start[..., None]
-        s = s.clamp(0.0, size_in - 1.0)
-        f = s.floor()
-        i0 = f.long()
-        return i0, (i0 + 1).clamp(max=size_in - 1), s - f
-
-    iy0, iy1, wy = sample(oh, bh, y0, h_in)                        # [N,K,h]
-    ix0, ix1, wx = sample(ow, bw, x0, w_in)                        # [N,K,w]
+    iy0, iy1, wy = crop_taps(oh, bh, y0, h_in)                     # [N,K,h]
+    ix0, ix1, wx = crop_taps(ow, bw, x0, w_in)                     # [N,K,w]
     img = frames.flip(-1) if reverse_channels else frames
     nidx = torch.arange(n, device=dev)[:, None, None, None]
 
@@ -245,7 +344,8 @@ def crop_and_resize(frames, boxes, out_hw=(224, 224), reverse_channels=False,
                     mirror=False, dtype=torch.float32):
     """K2: see :func:`crop_and_resize_plain`.  On the card ``boxes`` must be
     a contiguous float32 ``[N,K,4]`` tensor on the frames' device; it is
-    read by the kernel, so the host never waits for it."""
+    read by the kernel, so the host never waits for it.  Raises where two
+    frame rows are too wide to stage (:func:`crop_plan`)."""
     if frames.device.type == 'cpu':
         return crop_and_resize_plain(frames, boxes, out_hw, reverse_channels,
                                      scale, offset, mirror, dtype)
@@ -262,13 +362,16 @@ def crop_and_resize(frames, boxes, out_hw=(224, 224), reverse_channels=False,
                          f'{tuple(boxes.shape)} on {boxes.device}')
     k = boxes.shape[1]
     oh, ow = out_hw
+    if not 0 < n * k <= 65535:
+        raise ValueError(f'{n * k} boxes: K2 takes 1 to 65535 per call')
+    plan = crop_plan(w, oh, ow, n * k, _sm_count(frames.device))
     out = torch.empty(((2 if mirror else 1) * n * k, oh, ow, 3), dtype=dtype,
                       device=frames.device)
     err = library().tpd_crop_resize_u8(
         frames.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, h, w, k, oh,
         ow, _recip(oh), _recip(ow), int(reverse_channels), *scale, *offset,
-        int(mirror),
-        int(dtype == torch.bfloat16), *stream_args(frames))
+        int(mirror), int(dtype == torch.bfloat16), *plan,
+        *stream_args(frames))
     check(err, 'crop_and_resize')
     crop_and_resize.launches += 1
     return out

@@ -115,14 +115,15 @@ def run_tree(tree):
                 ptxas=ptxas.strip())
 
 
-def run_trees(script, trees, timeout=600):
-    """Runs ``script --tree DIR`` for each of ``trees`` in a process of its
-    own, in the order given, and returns the JSON object that each prints
-    last (printing each, its ``ptxas`` report left out, as it comes)."""
+def run_trees(script, trees, timeout=600, extra=()):
+    """Runs ``script --tree DIR`` (then ``extra``) for each of ``trees`` in
+    a process of its own, in the order given, and returns the JSON object
+    that each prints last (printing each, its ``ptxas`` report left out,
+    as it comes)."""
     runs = []
     for tree in trees:
         res = subprocess.run([sys.executable, os.path.abspath(script),
-                              '--tree', tree], capture_output=True,
+                              '--tree', tree, *extra], capture_output=True,
                              text=True, timeout=timeout)
         if res.returncode:
             print(res.stdout + res.stderr, file=sys.stderr)

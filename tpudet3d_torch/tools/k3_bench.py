@@ -8,10 +8,11 @@ Times the kernel back to back at N=16 in the greedy, soft-NMS and box-vote
 settings and at N=1, its device time (``torch.profiler``) at N=16 and N=1,
 and a split: over a sweep of K and max_det and the three settings, the
 device time of each CUDA kernel that one call launches and the gap between
-two kernels of a call.  Checks every setting against the plain version
-first.  With ``--trees``, each DIR's own ``tpudet3d_torch``, its kernels
-built from its own sources, is timed in a process of its own, in the order
-given (``--trees parent . . parent`` compares two checkouts in turns);
+two kernels of a call, and the device time at the large K of
+max_detections 128 and 511.  Checks every setting against the plain
+version first.  With ``--trees``, each DIR's own ``tpudet3d_torch``, its
+kernels built from its own sources, is timed in a process of its own, in
+the order given (``--trees parent . . parent`` compares two checkouts in turns);
 every process makes the same inputs from the same seeds.  Prints a JSON
 line per run with the card's name and power limit and the K3 source's
 ``ptxas`` report.  Needs CUDA.
@@ -43,6 +44,14 @@ SPLIT = (('K=1 max_det 1', dict(pre_nms_k=1, max_per_img=1)),
          ('K=128', dict(pre_nms_k=128)),
          ('K=32 max_det 1', dict(max_per_img=1)),
          ('soft', SETTINGS['soft']), ('vote', SETTINGS['vote']))
+# the large K of max_detections 128 and 511 at N=16, on top of BASE; a tree
+# whose wrapper refuses a K records None for it
+LARGE = (('K=512 max_det 128', dict(pre_nms_k=512, max_per_img=128)),
+         ('K=512 max_det 128 soft', dict(pre_nms_k=512, max_per_img=128,
+                                         **SETTINGS['soft'])),
+         ('K=2044 max_det 511', dict(pre_nms_k=2044, max_per_img=511)),
+         ('K=2044 max_det 511 vote', dict(pre_nms_k=2044, max_per_img=511,
+                                          **SETTINGS['vote'])))
 
 
 def det_batch(n, kind='random', seed=2):
@@ -156,10 +165,22 @@ def run_tree(tree):
             decode_detections_plain(logits, deltas, anchors, **kw)))
     split = {name: kernel_split(lambda kw=dict(BASE, **kw): decode_detections(
         logits, deltas, anchors, **kw)) for name, kw in SPLIT}
+    large = {}
+    for name, kw in LARGE:
+        kw = dict(BASE, **kw)
+        try:
+            err = max(err, det_err(
+                decode_detections(logits, deltas, anchors, **kw),
+                decode_detections_plain(logits, deltas, anchors, **kw)))
+        except ValueError:          # a wrapper that refuses this K
+            large[name] = None
+            continue
+        large[name] = device_ms(lambda kw=kw: decode_detections(
+            logits, deltas, anchors, **kw), calls=10)
     return dict(tree=tree, gpu=gpu_line(), build_s=build_s,
                 max_abs_err=err,
                 **k3_times(decode_detections, logits, deltas, anchors),
-                split=split, ptxas=ptxas.strip())
+                split=split, large_device_ms=large, ptxas=ptxas.strip())
 
 
 def main():

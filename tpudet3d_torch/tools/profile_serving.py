@@ -28,7 +28,7 @@ STEPS = 5
 # kernel-name fragments → group, first match wins
 GROUPS = (
     ('K1 resize', ('resize_tiled_u8_kernel',)),
-    ('K2 crop', ('crop_resize_u8_kernel',)),
+    ('K2 crop', ('crop_band_kernel',)),
     ('K3 decode_nms', ('decode_nms_kernel',)),
     ('K4 head_epilogue', ('head_epilogue_kernel',)),
     ('convolution', ('conv', 'xmma', 'cudnn', 'implicit', 'depthwise',
