@@ -9,13 +9,16 @@ Phases, each fatal on failure:
    paths' shapes (K1 resize at N=1 and 16 of 720p and on every shape of
    ``K1_CASES``, K2 crop on every case of ``K2_CASES`` with TTA off and
    on, K3 decode+NMS at A=2044, C=9 on every case of ``K3_CASES`` (K up
-   to 2044), K4 head epilogue on 128 crops
-   with TTA off and on in refine and pack mode with bf16 logits that carry
-   exact ties, K5 oriented-box IoU at P=8 and 128 on random boxes and on
-   exact cases, and against scipy on 32 pairs) and time kernel, plain
-   version and, where one exists, the PyTorch library call (K1 and K2 also
-   with a cold L2 and at N=1, K2 with the mirror, K3 in three settings, at
-   N=1 and on the device).
+   to 2044), K4 head epilogue on 128 crops with TTA off and on in refine
+   and pack mode with bf16 logits that carry exact ties, and at 1, 127,
+   129 and 128 crops also on logits with NaNs and ties across its warp
+   reduction, K5 oriented-box IoU at P=1, 8, 128, 129 and 300 (two pairs
+   per CTA) on random boxes and on exact cases, and against scipy on 32
+   pairs) and time kernel, plain version and, where one exists, the
+   PyTorch library call (K1 and K2 also with a cold L2 and at N=1, K2 with
+   the mirror, K3 in three settings, at N=1 and on the device), and the
+   launch floor (the device time of an add on one float) beside K4 and
+   K5.
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
@@ -49,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from tpudet3d_torch.tools.k1_bench import launch_floor_ms
 from tpudet3d_torch.tools.k2_bench import engine_like_boxes
 from tpudet3d_torch.tools.k3_bench import BASE as K3_BASE
 from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
@@ -359,23 +363,33 @@ def check_k3(dev, ops, anchors):
         library_ms=None, bound=bound_ms(n_bytes, n_ops))
 
 
-def k4_inputs(b, tta, seed=0):
+def k4_inputs(b, tta, seed=0, nan_ties=False):
     """Regressor outputs for K4 over b crops as numpy: pre-activations
     [B',9,18] (every 7th crop saturated, so keypoints press against the
     crop edge), logits [B',9] exactly representable in bfloat16 with exact
     ties at the maximum (the same in a crop and its mirror), crop boxes
     [b,4] in a 720p frame and detections [b,6] (every 5th a padded row
-    with score 0).  The card tests (tests/test_torch_port_kernels.py) and
-    the CPU parity tests use these inputs too."""
+    with score 0).  With ``nan_ties`` the logits follow K4_SPECIAL_ROWS
+    instead, a crop's mirror three patterns on from the crop's own.  The
+    card tests (tests/test_torch_port_kernels.py) and the CPU parity tests
+    use these inputs too."""
     rng = np.random.RandomState(seed)
     b2 = 2 * b if tta else b
     pre = rng.normal(0.0, 2.0, (b2, 9, 18)).astype(np.float32)
     pre[::7] *= 8.0
     logits = rng.normal(0.0, 2.0, (b2, 9)).astype(np.float32)
     logits = torch.from_numpy(logits).bfloat16().float().numpy()
-    group = np.arange(b2) % b % 3
-    logits[group == 0, 4] = logits[group == 0, 6] = 8.0
-    logits[group == 1, 2] = logits[group == 1, 7] = 9.0
+    if nan_ties:
+        logits = -np.abs(logits) - 1.0
+        for r in range(b2):
+            pattern = K4_SPECIAL_ROWS[(r % b + 3 * (r >= b))
+                                      % len(K4_SPECIAL_ROWS)]
+            for c, v in pattern.items():
+                logits[r, c] = v
+    else:
+        group = np.arange(b2) % b % 3
+        logits[group == 0, 4] = logits[group == 0, 6] = 8.0
+        logits[group == 1, 2] = logits[group == 1, 7] = 9.0
     w, h = K4_REFINE[:2]
     x0 = rng.uniform(-20, w, b)
     y0 = rng.uniform(-20, h, b)
@@ -388,6 +402,23 @@ def k4_inputs(b, tta, seed=0):
     dets[::5, 4] = 0.0
     dets[:, 5] = rng.randint(0, 9, b)
     return pre, logits, boxes, dets
+
+
+# K4's logit rows with NaNs and ties ({class: value} over negative logits),
+# cycled over the crops: torch.argmax takes the first NaN, else the first
+# maximum.  Ties sit in lanes far apart in K4's warp reduction (1 and 8,
+# 2 and 7), all nine tie, -0.0 ties +0.0, and with TTA a crop and its
+# mirror give inf - inf = NaN or NaN + x.
+K4_SPECIAL_ROWS = (
+    {c: 1.5 for c in range(9)},                      # 0: all nine tie
+    {1: 4.0, 8: 4.0},                                # 1
+    {6: np.nan, 3: np.nan, 0: 7.0},                  # 3: first NaN
+    {8: np.nan, 0: np.inf},                          # 8: NaN beats inf
+    {c: -np.inf for c in range(9)},                  # 0: all -inf
+    {2: np.inf, 7: np.inf},                          # 2
+    {5: -0.0, 4: 0.0},                               # 4: -0.0 == +0.0
+    {8: 3.0},                                        # 8: the last class
+)
 
 
 def compare_k4(out, ref, what, refine):
@@ -431,22 +462,32 @@ def profile_call(fn, calls=20):
     return None, None
 
 
+# K4's crop counts beyond the serving pass's 128: one warp's crop alone,
+# and a last CTA of 3 or 1 live warps
+K4_CASES = ((128, False), (1, False), (127, False), (129, False),
+            (128, True), (1, True), (127, True), (129, True))
+
+
 def check_k4(dev, ops):
+    """K4 against its plain version on every (B, NaNs and ties) of
+    K4_CASES with TTA off and on, in refine and pack mode; times the
+    serving path's pass (B=128, pack, no TTA) and the launch floor."""
     head_epilogue, head_epilogue_plain = ops
     err = 0.0
-    for tta in (False, True):
-        pre, logits, boxes, dets = (torch.from_numpy(a).to(dev)
-                                    for a in k4_inputs(128, tta, 4))
-        logits = logits.bfloat16()
-        for refine in (True, False):
-            kw = dict(tta_w=224 if tta else 0)
-            kw.update(dict(refine=K4_REFINE) if refine
-                      else dict(dets=dets, det_conf=0.5))
-            err = max(err, compare_k4(
-                head_epilogue(pre, logits, boxes, **kw),
-                head_epilogue_plain(pre, logits, boxes, **kw),
-                f'K4 B=128 tta={tta} {"refine" if refine else "pack"}',
-                refine))
+    for b, nan_ties in K4_CASES:
+        for tta in (False, True):
+            pre, logits, boxes, dets = (torch.from_numpy(a).to(dev) for a
+                                        in k4_inputs(b, tta, 4, nan_ties))
+            logits = logits.bfloat16()
+            for refine in (True, False):
+                kw = dict(tta_w=224 if tta else 0)
+                kw.update(dict(refine=K4_REFINE) if refine
+                          else dict(dets=dets, det_conf=0.5))
+                err = max(err, compare_k4(
+                    head_epilogue(pre, logits, boxes, **kw),
+                    head_epilogue_plain(pre, logits, boxes, **kw),
+                    f'K4 B={b} tta={tta} nan_ties={nan_ties} '
+                    f'{"refine" if refine else "pack"}', refine))
     # the serving path's last pass: TTA off, pack mode
     pre, logits, boxes, dets = (torch.from_numpy(a).to(dev)
                                 for a in k4_inputs(128, False, 5))
@@ -465,8 +506,9 @@ def check_k4(dev, ops):
                    200),
         plain_ms=time_ms(lambda: head_epilogue_plain(pre, logits, boxes,
                                                      dets=dets), 20),
-        library_ms=None, bound=bound_ms(*k4_work(
-            boxes.shape[0], logits.shape[1], logits.element_size())))
+        library_ms=None, floor_ms=launch_floor_ms(dev),
+        bound=bound_ms(*k4_work(boxes.shape[0], logits.shape[1],
+                                logits.element_size())))
 
 
 def box_kps(center, half, rot=np.eye(3)):
@@ -580,7 +622,7 @@ def k5_work(a, b, box3d):
 def check_k5(dev, ops, box3d):
     iou, iou_plain, iou_host = ops
     err = 0.0
-    for p in (8, 128):
+    for p in (1, 8, 128, 129, 300):     # 300: two pairs per CTA
         a, b = (torch.from_numpy(x).to(dev) for x in k5_fuzz_pairs(p, p))
         e = max_err(iou(a, b), iou_plain(a, b))
         print(f'K5 P={p}: max |kernel - plain| = {e:.3g} (tol 1e-5)')
@@ -607,8 +649,8 @@ def check_k5(dev, ops, box3d):
             bound=bound_ms(*k5_work(a, b, box3d)))
         print(f'K5 P={p}: {out[p]["ms"]} ms per call back to back, '
               f'{out[p]["device_ms"]} ms on the device')
-    return dict(err=err, host_err=e_host, library_ms=None, **out[128],
-                p8=out[8])
+    return dict(err=err, host_err=e_host, library_ms=None,
+                floor_ms=launch_floor_ms(dev), **out[128], p8=out[8])
 
 
 def check_results(results, h, w):
@@ -1030,12 +1072,14 @@ def run(dev, out_path, iters=20):
                       device_ms_n1=k3['device_ms_n1'])
     kernels[3].update(launches_per_pass_kernel_plain=k4['launches_per_pass'],
                       device_ms=k4['device_ms'],
-                      plain_device_ms=k4['plain_device_ms'])
+                      plain_device_ms=k4['plain_device_ms'],
+                      floor_ms=k4['floor_ms'])
     kernels[4].update(device_ms=k5['device_ms'], ms_p8=k5['p8']['ms'],
                       device_ms_p8=k5['p8']['device_ms'],
                       plain_ms_p8=k5['p8']['plain_ms'],
                       bound_ms_p8=k5['p8']['bound'][0],
-                      max_abs_err_scipy=k5['host_err'])
+                      max_abs_err_scipy=k5['host_err'],
+                      floor_ms=k5['floor_ms'])
     for k in kernels:
         lib = ('none' if k['library_ms'] is None
                else f"{k['library_ms']:.4f} ms")

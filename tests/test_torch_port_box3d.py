@@ -64,6 +64,25 @@ def test_k5_plain_fuzz_matches_jax():
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize('p', [1, 129])
+def test_k5_plain_matches_jax_pair_counts(p):
+    """One pair, and one more than a full 128: the pair counts at which K5's
+    launch has a lone CTA or a ragged last one."""
+    a, b = k5_fuzz_pairs(p, seed=p)
+    ref = np.asarray(jax_box3d.iou_oriented_boxes(a, b))
+    out = box3d.iou_oriented_boxes_plain(_t(a), _t(b)).numpy()
+    assert out.shape == (p,)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('p,pairs', [(1, 1), (8, 1), (128, 1), (256, 1),
+                                     (257, 2), (2048, 2)])
+def test_k5_plan(p, pairs):
+    """A CTA per pair up to K5_ONE_PAIR_UP_TO pairs, per two pairs above."""
+    assert box3d.K5_ONE_PAIR_UP_TO == 256
+    assert box3d.iou_plan(p) == pairs
+
+
 def test_k5_plain_matches_scipy():
     a, b = k5_fuzz_pairs(32, seed=2)
     out = box3d.iou_oriented_boxes_plain(_t(a), _t(b)).numpy()

@@ -131,6 +131,33 @@ def test_k4_plain_matches_jax_epilogue(tta, mode):
     assert ((lg == lg.amax(1, keepdim=True)).sum(1) > 1).sum() >= 10
 
 
+@pytest.mark.parametrize('mode', ['refine', 'pack'])
+@pytest.mark.parametrize('tta', [False, True])
+@pytest.mark.parametrize('b', [1, 127, 129])
+def test_k4_plain_matches_jax_nan_ties(b, tta, mode):
+    """Logits with NaNs and ties (chip_smoke.K4_SPECIAL_ROWS) at the crop
+    counts where K4's last CTA is partly live: the labels are
+    jnp.argmax's (the first NaN, else the first maximum), in bf16."""
+    pre, logits, boxes, dets = k4_inputs(b, tta, seed=4, nan_ties=True)
+    tta_w = 64 if tta else 0
+    refine = K4_REFINE if mode == 'refine' else None
+    kw = dict(tta_w=tta_w, refine=refine,
+              dets=None if refine else torch.from_numpy(dets), det_conf=0.5)
+    out = head_epilogue_plain(torch.from_numpy(pre),
+                              torch.from_numpy(logits).bfloat16(),
+                              torch.from_numpy(boxes), **kw).numpy()
+    ref = jax_epilogue(pre, jnp.asarray(logits, jnp.bfloat16), boxes, tta_w,
+                       refine, dets, 0.5)
+    if refine:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+        return
+    np.testing.assert_allclose(out[:, 6:24], ref[:, 6:24], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(out[:, [0, 1, 2, 3, 4, 5, 24, 25]],
+                                  ref[:, [0, 1, 2, 3, 4, 5, 24, 25]])
+    if b > 8:   # every pattern of logits appears, NaN labels among them
+        assert set(out[:, 24].astype(int)) >= {0, 1, 3, 8}
+
+
 def test_k4_sigmoid_and_wrapper_on_cpu():
     x = torch.linspace(-30, 30, 2001)
     torch.testing.assert_close(sigmoid(x), torch.sigmoid(x), rtol=0,

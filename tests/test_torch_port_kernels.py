@@ -9,8 +9,9 @@ the port feeds it (chip_smoke.K1_CASES); K2 f32 1e-4 and bf16 2^-7 + 1e-4
 (normalised values, fused multiply-adds in the kernel), on the box and
 frame cases of chip_smoke.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
 the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
-labels exact; K5 1e-5 (kernel and plain version compute the same float32
-operations in the same order).
+labels exact, also at the crop counts and on the logits with NaNs and ties
+of chip_smoke.K4_CASES; K5 1e-5 (kernel and plain version compute the same
+float32 operations in the same order), with one pair per CTA and two.
 
 The K1 shapes, the K2 and K3 cases and the K4 and K5 inputs come from
 chip_smoke.py, so these
@@ -28,11 +29,12 @@ from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
 from tpudet3d_torch.infer.epilogue import head_epilogue, head_epilogue_plain
 from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
+from tpudet3d_torch.ops import box3d
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
 from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
-                        K4_REFINE, k1_frames, k2_case, k3_case, k4_inputs,
-                        k5_exact_cases, k5_fuzz_pairs)
+                        K4_CASES, K4_REFINE, compare_k4, k1_frames, k2_case,
+                        k3_case, k4_inputs, k5_exact_cases, k5_fuzz_pairs)
 from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 
@@ -108,8 +110,38 @@ def test_k4_kernel_matches_plain(cuda, tta, mode, logits_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('p', [8, 128])
+@pytest.mark.parametrize('b,nan_ties', K4_CASES[1:])
+@pytest.mark.parametrize('mode', ['refine', 'pack'])
+@pytest.mark.parametrize('tta', [False, True])
+def test_k4_kernel_crop_counts_nan_ties(cuda, tta, mode, b, nan_ties):
+    """B = 1, 127, 129 (a CTA's warps partly live) and logits with NaNs
+    and ties across the warp reduction, bf16 as on the serving path."""
+    pre, logits, boxes, dets = (torch.from_numpy(a).to(cuda)
+                                for a in k4_inputs(b, tta, 4, nan_ties))
+    logits = logits.bfloat16()
+    kw = dict(tta_w=224 if tta else 0)
+    kw.update(dict(refine=K4_REFINE) if mode == 'refine'
+              else dict(dets=dets, det_conf=0.5))
+    compare_k4(head_epilogue(pre, logits, boxes, **kw),
+               head_epilogue_plain(pre, logits, boxes, **kw),
+               f'K4 B={b} nan_ties={nan_ties}', mode == 'refine')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p', [8, 128, 1, 129])
 def test_k5_kernel_matches_plain(cuda, p):
+    a, b = (torch.from_numpy(x).to(cuda) for x in k5_fuzz_pairs(p, seed=p))
+    out = iou_oriented_boxes(a, b)
+    torch.testing.assert_close(out, iou_oriented_boxes_plain(a, b), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p', [1, 8, 129])
+def test_k5_kernel_two_pairs_per_cta(cuda, monkeypatch, p):
+    """The launch with two pairs per CTA, the last CTA's second pair
+    absent at odd P."""
+    monkeypatch.setattr(box3d, 'K5_ONE_PAIR_UP_TO', 0)
     a, b = (torch.from_numpy(x).to(cuda) for x in k5_fuzz_pairs(p, seed=p))
     out = iou_oriented_boxes(a, b)
     torch.testing.assert_close(out, iou_oriented_boxes_plain(a, b), rtol=0,

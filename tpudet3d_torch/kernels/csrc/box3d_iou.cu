@@ -5,34 +5,46 @@
 // Replaces: tpudet3d/ops/box3d.py:161-209 iou_oriented_boxes with
 //   _clip_polygon_by_plane (:80) and _clip_face_volume (:119).
 //
-// Bound on the H100: launch latency.  A pair reads 216 bytes and needs
-// about 4 kflop (7 per clip visit of a valid vertex, 12 per crossing, 15
-// per fan triangle, ~1 k of set-up; chip_smoke.py's k5_work counts them
-// on the data); at P = 128 that is 28 KB (8 ns at 3.35 TB/s) and 0.5 Mflop
+// Bound on the H100: the launch plus one round trip to memory and a chain
+// of dependent steps, not bytes.  A pair reads 216 bytes and needs about
+// 4 kflop (7 per clip visit of a valid vertex, 12 per crossing, 15 per
+// fan triangle, ~1 k of set-up; chip_smoke.py's k5_work counts them on
+// the data); at P = 128 that is 28 KB (8 ns at 3.35 TB/s) and 0.5 Mflop
 // (7 ns at 67 TFLOP/s f32), and the protocol calls it on at most 8 pairs
-// of one example.
+// of one example.  What is left is the depth of the chain: set-up, six
+// clip passes, the fan and the sums.
 //
-// Design: 12 threads per pair, one per face (faces 0-5 are box 1's,
-// clipped by box 2's 6 halfspaces; faces 6-11 box 2's, clipped by box
-// 1's).  Each thread derives both boxes' axes and planes itself, clips its
-// quad with 6 Sutherland-Hodgman passes between two 12-vertex buffers in
-// local memory, and fan-triangulates the result into a signed volume.  The
-// pair's first thread sums the 12 face volumes in a fixed order (faces 0-5,
-// then 6-11) and finishes the IoU.  Every product, sum and quotient is
-// written with the round-to-nearest intrinsics in the order of the plain
-// PyTorch version (ops/box3d.py), so nothing is contracted into a fused
-// multiply-add and the two agree bit for bit on the card.  The division of
-// the fan sum by 6 is a product with the f32 reciprocal, as PyTorch
-// divides a tensor by a scalar on the card.
+// Design: a CTA holds kPairs pairs (1 or 2, the wrapper's plan), 192
+// threads each.  Six threads of a pair derive the two boxes' planes once
+// (one per box and axis) into shared memory while every lane loads its
+// face's corners.  Then each of the 12 faces (0-5 box 1's, clipped by box
+// 2's 6 halfspaces; 6-11 box 2's, clipped by box 1's) takes a 16-lane
+// segment: lane i holds vertex slot i (lanes 12-15 idle), and each
+// Sutherland-Hodgman pass is the plain version's vectorised _clip
+// (ops/box3d.py) across lanes: the distance in parallel, the next
+// vertex by a shuffle, inside and crossing bits by two ballots, each
+// emission's slot by the popcount of the lower lanes' bits, and a scatter
+// into the face's shared double buffer (slot 12 drops emissions past
+// slot 11, which still count).  The lanes' fan determinants are summed
+// in slot order by shuffles, and one thread of the pair sums the 12 face
+// volumes in a fixed order (faces 0-5, then 6-11) and finishes the IoU.
+// Every product, sum and quotient is written with the round-to-nearest
+// intrinsics in the order of the plain PyTorch version, so nothing is
+// contracted into a fused multiply-add and the two agree bit for bit on
+// the card.  The division of the fan sum by 6 is a product with the f32
+// reciprocal, as PyTorch divides a tensor by a scalar on the card.  No
+// array is indexed at run time outside shared memory, so nothing lives
+// in local memory.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxV = 12;           // vertex buffer per clipped polygon
-constexpr int kPairsPerBlock = 8;
-constexpr int kThreads = kPairsPerBlock * 12;
+constexpr int kMaxV = 12;           // vertex slots of a clipped polygon
+constexpr int kSeg = 16;            // lanes per face
+constexpr int kPairThreads = 12 * kSeg;
+constexpr unsigned kFull = 0xffffffffu;
 
 // face corner indices into the 8 corners, CCW seen from outside for a
 // right-handed (e1, e2, e3): +e1, -e1, +e2, -e2, +e3, -e3
@@ -66,6 +78,11 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 __device__ __forceinline__ float sgn(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : v);
 }
+__device__ __forceinline__ V3 shfl(V3 v, int src) {
+  return {__shfl_sync(kFull, v.x, src, kSeg),
+          __shfl_sync(kFull, v.y, src, kSeg),
+          __shfl_sync(kFull, v.z, src, kSeg)};
+}
 
 __device__ __forceinline__ V3 corner(const float* kp, int i) {
   const float* p = kp + (1 + i) * 3;
@@ -81,113 +98,130 @@ __device__ __forceinline__ V3 mean_corners(const float* kp, const int* rows) {
   return scale(s, 1.f / N);  // 1/8 and 1/4: exact
 }
 
-struct Box {
-  V3 c, e[3];
-  float det;
+// what the faces of the other box are clipped by, and the sign of det
+struct Planes {
   V3 n[6];
   float b[6];
+  float det;
 };
 
-__device__ void make_box(const float* kp, Box& box) {
+struct Pair {
+  Planes box[2];
+  float4 poly[12][2][kMaxV + 1];  // per face: double buffer, slot 12 drops
+  float vols[12];
+};
+
+// axis a of the box with keypoints kp: its two planes, and with a = 0 the
+// determinant, each in the order of the plain version's _box_halfspaces
+__device__ void make_planes(const float* kp, int a, Planes& out) {
   const int all[8] = {0, 1, 2, 3, 4, 5, 6, 7};
   const int r1[4] = {4, 5, 6, 7}, r2[4] = {2, 3, 6, 7}, r3[4] = {1, 3, 5, 7};
-  box.c = mean_corners<8>(kp, all);
-  box.e[0] = sub(mean_corners<4>(kp, r1), box.c);
-  box.e[1] = sub(mean_corners<4>(kp, r2), box.c);
-  box.e[2] = sub(mean_corners<4>(kp, r3), box.c);
-  box.det = dot(box.e[0], cross(box.e[1], box.e[2]));
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    V3 n = cross(box.e[(a + 1) % 3], box.e[(a + 2) % 3]);
-    n = scale(n, sgn(dot(n, box.e[a])));
-    box.n[2 * a] = n;
-    box.n[2 * a + 1] = neg(n);
-    box.b[2 * a] = dot(n, add(box.c, box.e[a]));
-    box.b[2 * a + 1] = dot(neg(n), sub(box.c, box.e[a]));
-  }
+  const V3 c = mean_corners<8>(kp, all);
+  const V3 e0 = sub(mean_corners<4>(kp, r1), c);
+  const V3 e1 = sub(mean_corners<4>(kp, r2), c);
+  const V3 e2 = sub(mean_corners<4>(kp, r3), c);
+  const V3 ea = a == 0 ? e0 : (a == 1 ? e1 : e2);
+  V3 n = a == 0 ? cross(e1, e2) : (a == 1 ? cross(e2, e0) : cross(e0, e1));
+  n = scale(n, sgn(dot(n, ea)));
+  out.n[2 * a] = n;
+  out.n[2 * a + 1] = neg(n);
+  out.b[2 * a] = dot(n, add(c, ea));
+  out.b[2 * a + 1] = dot(neg(n), sub(c, ea));
+  if (a == 0) out.det = dot(e0, cross(e1, e2));
 }
 
-// signed volume contributed by face f of box `own`, clipped by the planes
-// of box `other` (pass 1 for faces of box 1, pass 2 for box 2)
-__device__ float face_volume(const float* kp_own, const Box& own,
-                             const Box& other, int face, bool first_pass) {
-  V3 buf[2][kMaxV];
-#pragma unroll
-  for (int i = 0; i < kMaxV; ++i) buf[0][i] = buf[1][i] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) buf[0][j] = corner(kp_own, kFaces[face][j]);
-  const float hand = sgn(own.det);
-  const V3 face_n = scale(cross(sub(buf[0][1], buf[0][0]),
-                                sub(buf[0][2], buf[0][0])), hand);
-  int count = 4, cur = 0;
-  float d[kMaxV];
-  for (int k = 0; k < 6; ++k) {
-    const V3 nrm = other.n[k];
-    const float off = other.b[k];
-    const float tol = __fmul_rn(1e-5f, __fadd_rn(1.f, fabsf(off)));
-    const float eps = first_pass ? __fmul_rn(tol, sgn(dot(face_n, nrm)))
-                                 : -tol;
-    const V3* in = buf[cur];
-    V3* out = buf[cur ^ 1];
-    const int n_valid = min(count, kMaxV);
-    for (int i = 0; i < n_valid; ++i) d[i] = __fsub_rn(dot(in[i], nrm), off);
-    int emitted = 0;
-    for (int i = 0; i < n_valid; ++i) {
-      // the next vertex wraps at count; a read past slot 11 clamps to it
-      const int nxt = min(i + 1 >= count ? 0 : i + 1, kMaxV - 1);
-      const bool inside = d[i] <= eps;
-      const bool inside_next = d[nxt] <= eps;
-      if (inside) {
-        if (emitted < kMaxV) out[emitted] = in[i];
-        ++emitted;
-      }
-      if (inside != inside_next) {
-        const float denom = __fsub_rn(d[i], d[nxt]);
-        const float t = fabsf(denom) > 1e-12f ? __fdiv_rn(d[i], denom) : 0.f;
-        if (emitted < kMaxV)
-          out[emitted] = add(in[i], scale(sub(in[nxt], in[i]), t));
-        ++emitted;
-      }
-    }
-    count = emitted;
-    cur ^= 1;
-  }
-  // fan triangulation: cones (origin, p0, p_i, p_i+1) for 1 <= i < count-1
-  const V3* poly = buf[cur];
-  float total = 0.f;
-  for (int i = 1; i < kMaxV; ++i) {
-    const float det =
-        dot(poly[0], cross(poly[i], poly[min(i + 1, kMaxV - 1)]));
-    total = __fadd_rn(total, i < count - 1 ? det : 0.f);
-  }
-  return __fmul_rn(__fmul_rn(total, 1.f / 6.f), hand);
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int kPairs>
+__global__ void __launch_bounds__(kPairs * kPairThreads)
 box3d_iou_kernel(const float* __restrict__ kp1, const float* __restrict__ kp2,
                  float* __restrict__ out, int P) {
-  __shared__ float vols[kPairsPerBlock][12];
-  const int local = threadIdx.x / 12, face = threadIdx.x % 12;
-  const int p = blockIdx.x * kPairsPerBlock + local;
-  Box b1, b2;
-  if (p < P) {
-    const float* a = kp1 + (size_t)p * 27;
-    const float* b = kp2 + (size_t)p * 27;
-    make_box(a, b1);
-    make_box(b, b2);
-    vols[local][face] = face < 6 ? face_volume(a, b1, b2, face, true)
-                                 : face_volume(b, b2, b1, face - 6, false);
+  __shared__ Pair smem[kPairs];
+  const int local = threadIdx.x / kPairThreads;
+  const int t = threadIdx.x % kPairThreads;
+  const int p = blockIdx.x * kPairs + local;
+  const bool live = p < P;  // a whole pair's warps are live or not
+  Pair& s = smem[local];
+  const int face = t / kSeg, i = t % kSeg;
+  const bool first = face < 6;  // a face of box 1, clipped by box 2
+  const int own = first ? 0 : 1, f = first ? face : face - 6;
+  const float* kp_own = (own ? kp2 : kp1) + (size_t)p * 27;
+
+  // 1. the face's quad and its normal, while threads 0-5 make the planes
+  V3 v = {0.f, 0.f, 0.f}, q_n = v;
+  if (live) {
+    const V3 q0 = corner(kp_own, kFaces[f][0]);
+    q_n = cross(sub(corner(kp_own, kFaces[f][1]), q0),
+                sub(corner(kp_own, kFaces[f][2]), q0));
+    if (i < 4) v = corner(kp_own, kFaces[f][i]);
+    if (t < 6)
+      make_planes((t < 3 ? kp1 : kp2) + (size_t)p * 27, t % 3,
+                  s.box[t / 3]);
   }
   __syncthreads();
-  if (p >= P || face != 0) return;
-  float s1 = vols[local][0], s2 = vols[local][6];
+
+  if (live) {
+    const Planes& other = s.box[own ^ 1];
+    const float hand = sgn(s.box[own].det);
+    const V3 face_n = scale(q_n, hand);
+    const int shift = threadIdx.x & 16;  // this segment's ballot bits
+    const unsigned lower = (1u << i) - 1u;
+    int count = 4;
+    // 2. six Sutherland-Hodgman passes, one plane each
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const V3 nrm = other.n[k];
+      const float off = other.b[k];
+      const float tol = __fmul_rn(1e-5f, __fadd_rn(1.f, fabsf(off)));
+      const float eps = first ? __fmul_rn(tol, sgn(dot(face_n, nrm))) : -tol;
+      const float d = __fsub_rn(dot(v, nrm), off);
+      // the next vertex wraps at count; a read past slot 11 clamps to it
+      const int nxt = min(i + 1 >= count ? 0 : i + 1, kMaxV - 1);
+      const float d_next = __shfl_sync(kFull, d, nxt, kSeg);
+      const V3 v_next = shfl(v, nxt);
+      const bool valid = i < count && i < kMaxV;
+      const bool in = d <= eps;
+      const bool inside = valid && in;
+      const bool crossing = valid && in != (d_next <= eps);
+      const unsigned in_bits =
+          (__ballot_sync(kFull, inside) >> shift) & 0xffff;
+      const unsigned cr_bits =
+          (__ballot_sync(kFull, crossing) >> shift) & 0xffff;
+      const int start = __popc(in_bits & lower) + __popc(cr_bits & lower);
+      float4* poly = s.poly[face][(k & 1) ^ 1];
+      if (inside) poly[min(start, kMaxV)] = make_float4(v.x, v.y, v.z, 0.f);
+      if (crossing) {
+        const float denom = __fsub_rn(d, d_next);
+        const float tt = fabsf(denom) > 1e-12f ? __fdiv_rn(d, denom) : 0.f;
+        const V3 x = add(v, scale(sub(v_next, v), tt));
+        poly[min(start + (int)inside, kMaxV)] =
+            make_float4(x.x, x.y, x.z, 0.f);
+      }
+      count = __popc(in_bits) + __popc(cr_bits);
+      __syncwarp();
+      const float4 q = poly[min(i, kMaxV)];  // lanes 12-15: the drop slot
+      v = {q.x, q.y, q.z};
+    }
+    // 3. fan triangulation: cones (origin, p0, p_i, p_i+1) for
+    // 1 <= i < count-1, summed in slot order
+    const V3 p0 = shfl(v, 0);
+    const float det = dot(p0, cross(v, shfl(v, min(i + 1, kMaxV - 1))));
+    const float term = i < count - 1 ? det : 0.f;
+    float total = 0.f;
+#pragma unroll
+    for (int j = 1; j < kMaxV; ++j)
+      total = __fadd_rn(total, __shfl_sync(kFull, term, j, kSeg));
+    if (i == 0) s.vols[face] = __fmul_rn(__fmul_rn(total, 1.f / 6.f), hand);
+  }
+  __syncthreads();
+  if (!live || t != 0) return;
+  // 4. the pair's IoU
+  float s1 = s.vols[0], s2 = s.vols[6];
 #pragma unroll
   for (int j = 1; j < 6; ++j) {
-    s1 = __fadd_rn(s1, vols[local][j]);
-    s2 = __fadd_rn(s2, vols[local][6 + j]);
+    s1 = __fadd_rn(s1, s.vols[j]);
+    s2 = __fadd_rn(s2, s.vols[6 + j]);
   }
-  const float v1 = __fmul_rn(8.f, fabsf(b1.det));
-  const float v2 = __fmul_rn(8.f, fabsf(b2.det));
+  const float v1 = __fmul_rn(8.f, fabsf(s.box[0].det));
+  const float v2 = __fmul_rn(8.f, fabsf(s.box[1].det));
   // clamp(min=0) then minimum(., min(v1, v2)), NaN-propagating like torch
   float vi = __fadd_rn(s1, s2);
   vi = vi < 0.f ? 0.f : vi;
@@ -202,12 +236,20 @@ box3d_iou_kernel(const float* __restrict__ kp1, const float* __restrict__ kp2,
 }  // namespace
 
 extern "C" int tpd_box3d_iou(const void* kp1, const void* kp2, void* out,
-                             int p, int device, void* stream) {
+                             int p, int pairs_per_cta, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  box3d_iou_kernel<<<tpd::ceil_div(p, kPairsPerBlock), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(kp1), static_cast<const float*>(kp2),
-      static_cast<float*>(out), p);
+  const auto* a = static_cast<const float*>(kp1);
+  const auto* b = static_cast<const float*>(kp2);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (pairs_per_cta == 1)
+    box3d_iou_kernel<1><<<p, kPairThreads, 0, s>>>(a, b, o, p);
+  else if (pairs_per_cta == 2)
+    box3d_iou_kernel<2><<<tpd::ceil_div(p, 2), 2 * kPairThreads, 0, s>>>(
+        a, b, o, p);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,14 @@ def device_ms(fn, calls=50):
             if events else None)
 
 
+def launch_floor_ms(dev, calls=200):
+    """Device time of the smallest PyTorch kernel, an add on one float, by
+    :func:`device_ms`: what a launch costs on the device before any work
+    (None if the profiler records no device activity)."""
+    one = torch.zeros(1, device=dev)
+    return device_ms(lambda: one.add_(1.0), calls)
+
+
 def k1_times(resize, batches):
     """``resize`` (a K1 wrapper) on ``batches`` of uint8 frames, whose total
     exceeds the L2: warm ms on the first, cold ms cycling over all, warm
