@@ -12,9 +12,8 @@ Phases, each fatal on failure:
    to 2044), K4 head epilogue on 128 crops with TTA off and on in refine
    and pack mode with bf16 logits that carry exact ties, and at 1, 127,
    129 and 128 crops also on logits with NaNs and ties across its warp
-   reduction, K5 oriented-box IoU at P=1, 8, 128, 129 and 300 (two pairs
-   per CTA) on random boxes and on exact cases, and against scipy on 32
-   pairs) and time kernel, plain version and, where one exists, the
+   reduction, K5 oriented-box IoU at P=1, 8, 128 and 129 on random boxes
+   and on exact cases, and against scipy on 32 pairs) and time kernel, plain version and, where one exists, the
    PyTorch library call (K1 and K2 also with a cold L2 and at N=1, K2 with
    the mirror, K3 in three settings, at N=1 and on the device), and the
    launch floor (the device time of an add on one float) beside K4 and
@@ -421,21 +420,28 @@ K4_SPECIAL_ROWS = (
 )
 
 
-def compare_k4(out, ref, what, refine):
-    """Refine mode: boxes within 1e-4 px; pack mode: keypoints within 1e-6,
-    boxes, scores, labels and conf_mask exact."""
+def k4_error(out, ref, refine):
+    """K4's output ``out`` against its plain version's ``ref``: (max error,
+    whether it is within tolerance).  Refine mode: boxes within 1e-4 px;
+    pack mode: keypoints within 1e-6, and boxes, scores, labels and
+    conf_mask exact (the error is inf where they differ)."""
     if refine:
         e = max_err(out, ref)
-        print(f'{what}: max |kernel - plain| box {e:.3g} px (tol 1e-4)')
-        expect(e <= 1e-4, f'{what} disagrees')
-        return e
-    e = max_err(out[:, 6:24], ref[:, 6:24])
+        return e, e <= 1e-4
     rest = [0, 1, 2, 3, 4, 5, 24, 25]
-    expect(torch.equal(out[:, rest], ref[:, rest]),
-           f'{what}: boxes, scores or labels differ')
-    print(f'{what}: max |kernel - plain| kp {e:.3g} (tol 1e-6), labels '
-          'equal')
-    expect(e <= 1e-6, f'{what} disagrees')
+    if not torch.equal(out[:, rest], ref[:, rest]):
+        return float('inf'), False
+    e = max_err(out[:, 6:24], ref[:, 6:24])
+    return e, e <= 1e-6
+
+
+def compare_k4(out, ref, what, refine):
+    """Expects K4 within :func:`k4_error`'s tolerance; returns the error."""
+    e, ok = k4_error(out, ref, refine)
+    print(f'{what}: max |kernel - plain| '
+          + (f'box {e:.3g} px (tol 1e-4)' if refine
+             else f'kp {e:.3g} (tol 1e-6; boxes, scores, labels exact)'))
+    expect(ok, f'{what} disagrees')
     return e
 
 
@@ -622,7 +628,7 @@ def k5_work(a, b, box3d):
 def check_k5(dev, ops, box3d):
     iou, iou_plain, iou_host = ops
     err = 0.0
-    for p in (1, 8, 128, 129, 300):     # 300: two pairs per CTA
+    for p in (1, 8, 128, 129):
         a, b = (torch.from_numpy(x).to(dev) for x in k5_fuzz_pairs(p, p))
         e = max_err(iou(a, b), iou_plain(a, b))
         print(f'K5 P={p}: max |kernel - plain| = {e:.3g} (tol 1e-5)')

@@ -75,14 +75,6 @@ def test_k5_plain_matches_jax_pair_counts(p):
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize('p,pairs', [(1, 1), (8, 1), (128, 1), (256, 1),
-                                     (257, 2), (2048, 2)])
-def test_k5_plan(p, pairs):
-    """A CTA per pair up to K5_ONE_PAIR_UP_TO pairs, per two pairs above."""
-    assert box3d.K5_ONE_PAIR_UP_TO == 256
-    assert box3d.iou_plan(p) == pairs
-
-
 def test_k5_plain_matches_scipy():
     a, b = k5_fuzz_pairs(32, seed=2)
     out = box3d.iou_oriented_boxes_plain(_t(a), _t(b)).numpy()

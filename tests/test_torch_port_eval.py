@@ -63,7 +63,7 @@ from tpudet3d_torch.core import AttrDict as PortAttrDict
 from tpudet3d_torch.ops import geometry
 from tpudet3d_torch.ops.box3d import box_axes
 from test_torch_port_engine import weights  # noqa: F401  (fixture)
-from chip_smoke import K4_REFINE, box_kps, k4_inputs, rotation
+from chip_smoke import K4_REFINE, box_kps, k4_error, k4_inputs, rotation
 from torch_port_common import one_cpu_thread, port_of, set_no_tf32
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
@@ -156,6 +156,23 @@ def test_k4_plain_matches_jax_nan_ties(b, tta, mode):
                                   ref[:, [0, 1, 2, 3, 4, 5, 24, 25]])
     if b > 8:   # every pattern of logits appears, NaN labels among them
         assert set(out[:, 24].astype(int)) >= {0, 1, 3, 8}
+
+
+@pytest.mark.parametrize('refine,col,delta,ok', [
+    (True, 0, 1e-4, True), (True, 3, 2e-4, False),
+    (False, 6, 1e-6, True), (False, 23, 2e-6, False),
+    (False, 0, 1e-6, False), (False, 24, 1.0, False)])
+def test_k4_error_tolerance(refine, col, delta, ok):
+    """chip_smoke.k4_error, the one statement of K4's tolerance that the
+    smoke, the card tests and k4_bench share: refine boxes within 1e-4 px;
+    pack keypoints (columns 6-23) within 1e-6, every other column exact."""
+    ref = torch.zeros(3, 4 if refine else 26)
+    out = ref.clone()
+    out[1, col] = delta
+    err, within = k4_error(out, ref, refine)
+    assert within == ok
+    assert err == (pytest.approx(delta) if ok or 6 <= col < 24 or refine
+                   else float('inf'))
 
 
 def test_k4_sigmoid_and_wrapper_on_cpu():

@@ -11,7 +11,7 @@ frame cases of chip_smoke.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
 the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact, also at the crop counts and on the logits with NaNs and ties
 of chip_smoke.K4_CASES; K5 1e-5 (kernel and plain version compute the same
-float32 operations in the same order), with one pair per CTA and two.
+float32 operations in the same order).
 
 The K1 shapes, the K2 and K3 cases and the K4 and K5 inputs come from
 chip_smoke.py, so these
@@ -29,7 +29,6 @@ from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
 from tpudet3d_torch.infer.epilogue import head_epilogue, head_epilogue_plain
 from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
-from tpudet3d_torch.ops import box3d
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
 from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
@@ -130,18 +129,6 @@ def test_k4_kernel_crop_counts_nan_ties(cuda, tta, mode, b, nan_ties):
 @pytest.mark.cuda
 @pytest.mark.parametrize('p', [8, 128, 1, 129])
 def test_k5_kernel_matches_plain(cuda, p):
-    a, b = (torch.from_numpy(x).to(cuda) for x in k5_fuzz_pairs(p, seed=p))
-    out = iou_oriented_boxes(a, b)
-    torch.testing.assert_close(out, iou_oriented_boxes_plain(a, b), rtol=0,
-                               atol=1e-5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('p', [1, 8, 129])
-def test_k5_kernel_two_pairs_per_cta(cuda, monkeypatch, p):
-    """The launch with two pairs per CTA, the last CTA's second pair
-    absent at odd P."""
-    monkeypatch.setattr(box3d, 'K5_ONE_PAIR_UP_TO', 0)
     a, b = (torch.from_numpy(x).to(cuda) for x in k5_fuzz_pairs(p, seed=p))
     out = iou_oriented_boxes(a, b)
     torch.testing.assert_close(out, iou_oriented_boxes_plain(a, b), rtol=0,

@@ -55,7 +55,6 @@ from tpudet3d_torch.ops.image import (K1_COL_ALIGN, K2_BANDS, K2_RUN,
                                       resize_footprint, resize_plan,
                                       resize_windows, staged_ranges)
 from tpudet3d_torch.tools.k2_bench import phase_copies
-from tpudet3d_torch.tools import k4_bench, k5_bench
 from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
 from chip_smoke import K1_CASES, K2_CASES, K3_CASES, k2_case, k3_case
 from torch_port_common import one_cpu_thread, set_no_tf32
@@ -329,34 +328,6 @@ def test_k2_phase_copies(tmp_path):
         text = (tmp_path / d / 'tpudet3d_torch/kernels/csrc/crop.cu') \
             .read_text()
         assert text != src and 'crop_band_kernel' in text
-
-
-def test_k4_phase_copies(tmp_path):
-    """k4_bench's copies of K4 that stop after a phase, or load the selected
-    head after the argmax, find their marks in head_epilogue.cu and each
-    changes it; the late-head copy stages no row."""
-    src = (CSRC / 'head_epilogue.cu').read_text()
-    dirs = k4_bench.phase_copies(str(CSRC.parents[2]), str(tmp_path))
-    assert dirs == [str(tmp_path / name) for name in
-                    ('p1_loads', 'p2_argmax', 'v_heads_after')]
-    for d in dirs:
-        text = (tmp_path / d / 'tpudet3d_torch/kernels/csrc'
-                / 'head_epilogue.cu').read_text()
-        assert text != src and 'head_epilogue_kernel' in text
-    assert 'rows[warp][0][i] =' not in text and 'row[label * 18' in text
-
-
-def test_k5_phase_copies(tmp_path):
-    """k5_bench's copies of K5 that stop after a phase find their marks in
-    box3d_iou.cu and each changes it."""
-    src = (CSRC / 'box3d_iou.cu').read_text()
-    dirs = k5_bench.phase_copies(str(CSRC.parents[2]), str(tmp_path))
-    assert dirs == [str(tmp_path / name) for name in ('p1_setup', 'p2_clip')]
-    for d in dirs:
-        text = (tmp_path / d / 'tpudet3d_torch/kernels/csrc/box3d_iou.cu') \
-            .read_text()
-        assert text != src and 'box3d_iou_kernel' in text
-    assert 'return;\n  __syncthreads();' not in src
 
 
 def test_k2_plan_band_and_limit():

@@ -14,19 +14,18 @@
 // of one example.  What is left is the depth of the chain: set-up, six
 // clip passes, the fan and the sums.
 //
-// Design: a CTA holds kPairs pairs (1 or 2, the wrapper's plan), 192
-// threads each.  Six threads of a pair derive the two boxes' planes once
-// (one per box and axis) into shared memory while every lane loads its
-// face's corners.  Then each of the 12 faces (0-5 box 1's, clipped by box
-// 2's 6 halfspaces; 6-11 box 2's, clipped by box 1's) takes a 16-lane
-// segment: lane i holds vertex slot i (lanes 12-15 idle), and each
-// Sutherland-Hodgman pass is the plain version's vectorised _clip
+// Design: a CTA of 192 threads per pair.  Six of its threads derive the
+// two boxes' planes once (one per box and axis) into shared memory while
+// every lane loads its face's corners.  Then each of the 12 faces (0-5
+// box 1's, clipped by box 2's 6 halfspaces; 6-11 box 2's, clipped by box
+// 1's) takes a 16-lane segment: lane i holds vertex slot i (lanes 12-15
+// idle), and each Sutherland-Hodgman pass is the plain version's _clip
 // (ops/box3d.py) across lanes: the distance in parallel, the next
 // vertex by a shuffle, inside and crossing bits by two ballots, each
 // emission's slot by the popcount of the lower lanes' bits, and a scatter
 // into the face's shared double buffer (slot 12 drops emissions past
 // slot 11, which still count).  The lanes' fan determinants are summed
-// in slot order by shuffles, and one thread of the pair sums the 12 face
+// in slot order by shuffles, and one thread of the CTA sums the 12 face
 // volumes in a fixed order (faces 0-5, then 6-11) and finishes the IoU.
 // Every product, sum and quotient is written with the round-to-nearest
 // intrinsics in the order of the plain PyTorch version, so nothing is
@@ -130,89 +129,80 @@ __device__ void make_planes(const float* kp, int a, Planes& out) {
   if (a == 0) out.det = dot(e0, cross(e1, e2));
 }
 
-template <int kPairs>
-__global__ void __launch_bounds__(kPairs * kPairThreads)
+__global__ void __launch_bounds__(kPairThreads)
 box3d_iou_kernel(const float* __restrict__ kp1, const float* __restrict__ kp2,
-                 float* __restrict__ out, int P) {
-  __shared__ Pair smem[kPairs];
-  const int local = threadIdx.x / kPairThreads;
-  const int t = threadIdx.x % kPairThreads;
-  const int p = blockIdx.x * kPairs + local;
-  const bool live = p < P;  // a whole pair's warps are live or not
-  Pair& s = smem[local];
+                 float* __restrict__ out) {
+  __shared__ Pair s;
+  const int t = threadIdx.x;
+  const int p = blockIdx.x;
   const int face = t / kSeg, i = t % kSeg;
   const bool first = face < 6;  // a face of box 1, clipped by box 2
   const int own = first ? 0 : 1, f = first ? face : face - 6;
   const float* kp_own = (own ? kp2 : kp1) + (size_t)p * 27;
 
   // 1. the face's quad and its normal, while threads 0-5 make the planes
-  V3 v = {0.f, 0.f, 0.f}, q_n = v;
-  if (live) {
-    const V3 q0 = corner(kp_own, kFaces[f][0]);
-    q_n = cross(sub(corner(kp_own, kFaces[f][1]), q0),
-                sub(corner(kp_own, kFaces[f][2]), q0));
-    if (i < 4) v = corner(kp_own, kFaces[f][i]);
-    if (t < 6)
-      make_planes((t < 3 ? kp1 : kp2) + (size_t)p * 27, t % 3,
-                  s.box[t / 3]);
-  }
+  V3 v = {0.f, 0.f, 0.f};
+  const V3 q0 = corner(kp_own, kFaces[f][0]);
+  const V3 q_n = cross(sub(corner(kp_own, kFaces[f][1]), q0),
+                       sub(corner(kp_own, kFaces[f][2]), q0));
+  if (i < 4) v = corner(kp_own, kFaces[f][i]);
+  if (t < 6)
+    make_planes((t < 3 ? kp1 : kp2) + (size_t)p * 27, t % 3, s.box[t / 3]);
   __syncthreads();
 
-  if (live) {
-    const Planes& other = s.box[own ^ 1];
-    const float hand = sgn(s.box[own].det);
-    const V3 face_n = scale(q_n, hand);
-    const int shift = threadIdx.x & 16;  // this segment's ballot bits
-    const unsigned lower = (1u << i) - 1u;
-    int count = 4;
-    // 2. six Sutherland-Hodgman passes, one plane each
+  const Planes& other = s.box[own ^ 1];
+  const float hand = sgn(s.box[own].det);
+  const V3 face_n = scale(q_n, hand);
+  const int shift = t & 16;  // this segment's ballot bits
+  const unsigned lower = (1u << i) - 1u;
+  int count = 4;
+  // 2. six Sutherland-Hodgman passes, one plane each
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const V3 nrm = other.n[k];
-      const float off = other.b[k];
-      const float tol = __fmul_rn(1e-5f, __fadd_rn(1.f, fabsf(off)));
-      const float eps = first ? __fmul_rn(tol, sgn(dot(face_n, nrm))) : -tol;
-      const float d = __fsub_rn(dot(v, nrm), off);
-      // the next vertex wraps at count; a read past slot 11 clamps to it
-      const int nxt = min(i + 1 >= count ? 0 : i + 1, kMaxV - 1);
-      const float d_next = __shfl_sync(kFull, d, nxt, kSeg);
-      const V3 v_next = shfl(v, nxt);
-      const bool valid = i < count && i < kMaxV;
-      const bool in = d <= eps;
-      const bool inside = valid && in;
-      const bool crossing = valid && in != (d_next <= eps);
-      const unsigned in_bits =
-          (__ballot_sync(kFull, inside) >> shift) & 0xffff;
-      const unsigned cr_bits =
-          (__ballot_sync(kFull, crossing) >> shift) & 0xffff;
-      const int start = __popc(in_bits & lower) + __popc(cr_bits & lower);
-      float4* poly = s.poly[face][(k & 1) ^ 1];
-      if (inside) poly[min(start, kMaxV)] = make_float4(v.x, v.y, v.z, 0.f);
-      if (crossing) {
-        const float denom = __fsub_rn(d, d_next);
-        const float tt = fabsf(denom) > 1e-12f ? __fdiv_rn(d, denom) : 0.f;
-        const V3 x = add(v, scale(sub(v_next, v), tt));
-        poly[min(start + (int)inside, kMaxV)] =
-            make_float4(x.x, x.y, x.z, 0.f);
-      }
-      count = __popc(in_bits) + __popc(cr_bits);
-      __syncwarp();
-      const float4 q = poly[min(i, kMaxV)];  // lanes 12-15: the drop slot
-      v = {q.x, q.y, q.z};
+  for (int k = 0; k < 6; ++k) {
+    const V3 nrm = other.n[k];
+    const float off = other.b[k];
+    const float tol = __fmul_rn(1e-5f, __fadd_rn(1.f, fabsf(off)));
+    const float eps = first ? __fmul_rn(tol, sgn(dot(face_n, nrm))) : -tol;
+    const float d = __fsub_rn(dot(v, nrm), off);
+    // the next vertex wraps at count; a read past slot 11 clamps to it
+    const int nxt = min(i + 1 >= count ? 0 : i + 1, kMaxV - 1);
+    const float d_next = __shfl_sync(kFull, d, nxt, kSeg);
+    const V3 v_next = shfl(v, nxt);
+    const bool valid = i < count && i < kMaxV;
+    const bool in = d <= eps;
+    const bool inside = valid && in;
+    const bool crossing = valid && in != (d_next <= eps);
+    const unsigned in_bits =
+        (__ballot_sync(kFull, inside) >> shift) & 0xffff;
+    const unsigned cr_bits =
+        (__ballot_sync(kFull, crossing) >> shift) & 0xffff;
+    const int start = __popc(in_bits & lower) + __popc(cr_bits & lower);
+    float4* poly = s.poly[face][(k & 1) ^ 1];
+    if (inside) poly[min(start, kMaxV)] = make_float4(v.x, v.y, v.z, 0.f);
+    if (crossing) {
+      const float denom = __fsub_rn(d, d_next);
+      const float tt = fabsf(denom) > 1e-12f ? __fdiv_rn(d, denom) : 0.f;
+      const V3 x = add(v, scale(sub(v_next, v), tt));
+      poly[min(start + (int)inside, kMaxV)] =
+          make_float4(x.x, x.y, x.z, 0.f);
     }
-    // 3. fan triangulation: cones (origin, p0, p_i, p_i+1) for
-    // 1 <= i < count-1, summed in slot order
-    const V3 p0 = shfl(v, 0);
-    const float det = dot(p0, cross(v, shfl(v, min(i + 1, kMaxV - 1))));
-    const float term = i < count - 1 ? det : 0.f;
-    float total = 0.f;
-#pragma unroll
-    for (int j = 1; j < kMaxV; ++j)
-      total = __fadd_rn(total, __shfl_sync(kFull, term, j, kSeg));
-    if (i == 0) s.vols[face] = __fmul_rn(__fmul_rn(total, 1.f / 6.f), hand);
+    count = __popc(in_bits) + __popc(cr_bits);
+    __syncwarp();
+    const float4 q = poly[min(i, kMaxV)];  // lanes 12-15: the drop slot
+    v = {q.x, q.y, q.z};
   }
+  // 3. fan triangulation: cones (origin, p0, p_i, p_i+1) for
+  // 1 <= i < count-1, summed in slot order
+  const V3 p0 = shfl(v, 0);
+  const float det = dot(p0, cross(v, shfl(v, min(i + 1, kMaxV - 1))));
+  const float term = i < count - 1 ? det : 0.f;
+  float total = 0.f;
+#pragma unroll
+  for (int j = 1; j < kMaxV; ++j)
+    total = __fadd_rn(total, __shfl_sync(kFull, term, j, kSeg));
+  if (i == 0) s.vols[face] = __fmul_rn(__fmul_rn(total, 1.f / 6.f), hand);
   __syncthreads();
-  if (!live || t != 0) return;
+  if (t != 0) return;
   // 4. the pair's IoU
   float s1 = s.vols[0], s2 = s.vols[6];
 #pragma unroll
@@ -236,20 +226,13 @@ box3d_iou_kernel(const float* __restrict__ kp1, const float* __restrict__ kp2,
 }  // namespace
 
 extern "C" int tpd_box3d_iou(const void* kp1, const void* kp2, void* out,
-                             int p, int pairs_per_cta, int device,
-                             void* stream) {
+                             int p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const auto* a = static_cast<const float*>(kp1);
   const auto* b = static_cast<const float*>(kp2);
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (pairs_per_cta == 1)
-    box3d_iou_kernel<1><<<p, kPairThreads, 0, s>>>(a, b, o, p);
-  else if (pairs_per_cta == 2)
-    box3d_iou_kernel<2><<<tpd::ceil_div(p, 2), 2 * kPairThreads, 0, s>>>(
-        a, b, o, p);
-  else
-    return (int)cudaErrorInvalidValue;
+  box3d_iou_kernel<<<p, kPairThreads, 0, s>>>(a, b, o);
   return (int)cudaGetLastError();
 }

@@ -32,15 +32,10 @@ import torch
 from ..kernels.build import check, library, stream_args
 
 __all__ = ['box_axes', 'box_volume', 'iou_oriented_boxes',
-           'iou_oriented_boxes_plain', 'iou_plan',
-           'pairwise_iou_oriented_boxes', 'iou_single_host']
+           'iou_oriented_boxes_plain', 'pairwise_iou_oriented_boxes',
+           'iou_single_host']
 
 _MAXV = 12  # vertex buffer per clipped face polygon (quad + 6 clips ≤ 10)
-# K5 launches a CTA per pair of boxes up to this many pairs, and a CTA per
-# two pairs above: on the H100 two pairs per CTA take 6-10% longer at 8 and
-# 128 pairs, as long at 256, and 2-6% less from 512 on
-# (tpudet3d_torch/tools/k5_bench.py)
-K5_ONE_PAIR_UP_TO = 256
 
 # Face corner indices (into the 8-corner array, binary order: bit2=e1,
 # bit1=e2, bit0=e3), ordered CCW viewed from outside for a right-handed
@@ -212,13 +207,6 @@ def iou_oriented_boxes_plain(kp1, kp2):
     return iou.reshape(batch_shape)
 
 
-def iou_plan(p):
-    """Pairs of boxes per CTA of K5's launch for ``p`` pairs: 1 up to
-    K5_ONE_PAIR_UP_TO pairs, else 2 (a pair takes 12 segments of 16 lanes,
-    one per face, so 192 threads)."""
-    return 1 if p <= K5_ONE_PAIR_UP_TO else 2
-
-
 def iou_oriented_boxes(kp1, kp2):
     """K5: see :func:`iou_oriented_boxes_plain`.  Tensors ``[..., 9, 3]`` of
     one shape on one device; on the card float32."""
@@ -236,8 +224,7 @@ def iou_oriented_boxes(kp1, kp2):
     out = torch.empty((p,), dtype=torch.float32, device=a.device)
     if p:
         err = library().tpd_box3d_iou(a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), p, iou_plan(p),
-                                      *stream_args(a))
+                                      out.data_ptr(), p, *stream_args(a))
         check(err, 'iou_oriented_boxes')
         iou_oriented_boxes.launches += 1
     return out.reshape(batch_shape)

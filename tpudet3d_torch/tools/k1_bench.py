@@ -17,6 +17,7 @@ source's ``ptxas`` report.  Needs CUDA.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -100,9 +101,17 @@ def gpu_line():
     return res.stdout.strip().splitlines()[0]
 
 
+def use_tree(tree):
+    """Makes ``import tpudet3d_torch`` find ``tree``'s package, and drops
+    the modules of the package already imported (this tool's own)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    for name in [m for m in sys.modules if m.startswith('tpudet3d_torch')]:
+        del sys.modules[name]
+
+
 def run_tree(tree):
     """Times the K1 of the ``tpudet3d_torch`` found in ``tree``."""
-    sys.path.insert(0, os.path.abspath(tree))
+    use_tree(tree)
     from tpudet3d_torch.kernels.build import build
     from tpudet3d_torch.ops import resize_bilinear, resize_bilinear_plain
     _, build_s, log = build()
@@ -142,6 +151,64 @@ def run_trees(script, trees, timeout=600, extra=()):
     for tree, ptxas in {r['tree']: r['ptxas'] for r in runs}.items():
         print(f'{tree} ptxas:\n{ptxas}')
     return runs
+
+
+def write_copies(tree, dest, csrc, texts):
+    """For each ``name: text`` of ``texts``, writes a copy of ``tree``'s
+    ``tpudet3d_torch`` (its built kernels left out) to ``dest``/name whose
+    ``kernels/csrc/`` file ``csrc`` holds ``text``; returns the copies'
+    directories, which ``--trees`` can time."""
+    base = os.path.join(tree, 'tpudet3d_torch')
+    out = []
+    for name, text in texts.items():
+        d = os.path.join(dest, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(base, os.path.join(d, 'tpudet3d_torch'),
+                        ignore=shutil.ignore_patterns('_build', '__pycache__'))
+        with open(os.path.join(d, 'tpudet3d_torch/kernels/csrc', csrc),
+                  'w') as f:
+            f.write(text)
+        out.append(d)
+    return out
+
+
+def bench_main(script, doc, run_tree, phase_copies=None):
+    """The command line of an A/B tool ``script`` (described by ``doc``)
+    whose ``run_tree(tree, checked)`` times one checkout's kernel:
+    ``--trees`` (in turns, each in a process of its own), ``--out``,
+    ``--unchecked`` and, with ``phase_copies(tree, dest)``,
+    ``--phase-copies DEST``.  Returns the exit code."""
+    ap = argparse.ArgumentParser(description=doc.split('\n')[0])
+    ap.add_argument('--trees', nargs='+', default=None,
+                    help='checkouts to time in turns, each in a process of '
+                    'its own')
+    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--unchecked', action='store_true',
+                    help='do not require the kernel to match its plain '
+                    'version')
+    ap.add_argument('--out', default='')
+    if phase_copies:
+        ap.add_argument('--phase-copies', default='', metavar='DEST',
+                        help='write copies of the kernel that return after '
+                        'a phase to DEST and exit')
+    args = ap.parse_args()
+    if phase_copies and args.phase_copies:
+        print('\n'.join(phase_copies((args.trees or [os.getcwd()])[0],
+                                      args.phase_copies)))
+        return 0
+    name = os.path.basename(script)[:-3]
+    if not torch.cuda.is_available():
+        print(f'{name}: CUDA is not available', file=sys.stderr)
+        return 1
+    if args.tree:
+        print(json.dumps(run_tree(args.tree, not args.unchecked)))
+        return 0
+    runs = run_trees(script, args.trees or [os.getcwd()],
+                     extra=['--unchecked'] if args.unchecked else [])
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(runs, f, indent=1)
+    return 0
 
 
 def main():

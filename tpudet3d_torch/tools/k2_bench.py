@@ -26,10 +26,7 @@ DEST/p3_storeonly (stores of made-up values only), and needs no CUDA.
 Otherwise it needs CUDA.
 """
 
-import argparse
-import json
 import os
-import shutil
 import sys
 
 import numpy as np
@@ -38,8 +35,9 @@ import torch
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from tpudet3d_torch.tools.k1_bench import (cycle_ms, device_ms,  # noqa: E402
-                                           gpu_line, run_trees)
+from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
+                                           cycle_ms, device_ms, gpu_line,
+                                           use_tree, write_copies)
 
 FRAME = (720, 1280, 3)
 N, K = 16, 8
@@ -134,9 +132,7 @@ def band_sweep(image, crop, batches, boxes, norm):
 
 def run_tree(tree, checked=True):
     """Times the K2 of the ``tpudet3d_torch`` found in ``tree``."""
-    sys.path.insert(0, os.path.abspath(tree))
-    for name in [m for m in sys.modules if m.startswith('tpudet3d_torch')]:
-        del sys.modules[name]
+    use_tree(tree)
     from tpudet3d_torch.infer.engine import REG_OFFSET, REG_SCALE
     from tpudet3d_torch.kernels.build import build
     from tpudet3d_torch.ops import image
@@ -192,49 +188,11 @@ def phase_copies(tree, dest):
         '      float v[3 * kRun];\n#pragma unroll\n'
         '      for (int q = 0; q < 3 * kRun; ++q) v[q] = (float)(r + g + q);\n'
         ) + body[body.index(store):]
-    out = []
-    for name, text in copies.items():
-        d = os.path.join(dest, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(base, os.path.join(d, 'tpudet3d_torch'),
-                        ignore=shutil.ignore_patterns('_build', '__pycache__'))
-        with open(os.path.join(d, 'tpudet3d_torch/kernels/csrc/crop.cu'),
-                  'w') as f:
-            f.write(text)
-        out.append(d)
-    return out
+    return write_copies(tree, dest, 'crop.cu', copies)
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--trees', nargs='+', default=None,
-                    help='checkouts to time in turns, each in a process of '
-                    'its own')
-    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
-    ap.add_argument('--unchecked', action='store_true',
-                    help='do not require the kernel to match its plain '
-                    'version')
-    ap.add_argument('--out', default='')
-    ap.add_argument('--phase-copies', default='', metavar='DEST',
-                    help='write copies of the K2 kernel that return after a '
-                    'phase to DEST and exit')
-    args = ap.parse_args()
-    if args.phase_copies:
-        print('\n'.join(phase_copies((args.trees or [os.getcwd()])[0],
-                                      args.phase_copies)))
-        return 0
-    if not torch.cuda.is_available():
-        print('k2_bench: CUDA is not available', file=sys.stderr)
-        return 1
-    if args.tree:
-        print(json.dumps(run_tree(args.tree, not args.unchecked)))
-        return 0
-    runs = run_trees(__file__, args.trees or [os.getcwd()],
-                     extra=['--unchecked'] if args.unchecked else [])
-    if args.out:
-        with open(args.out, 'w') as f:
-            json.dump(runs, f, indent=1)
-    return 0
+    return bench_main(__file__, __doc__, run_tree, phase_copies)
 
 
 if __name__ == '__main__':

@@ -30,7 +30,7 @@ if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
 from tpudet3d_torch.tools.k1_bench import (cycle_ms, device_ms,  # noqa: E402
-                                           gpu_line, run_trees)
+                                           gpu_line, run_trees, use_tree)
 
 N, A, C = 16, 2044, 9
 BASE = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32)
@@ -144,9 +144,7 @@ def k3_times(decode, logits, deltas, anchors):
 
 def run_tree(tree):
     """Times the K3 of the ``tpudet3d_torch`` found in ``tree``."""
-    sys.path.insert(0, os.path.abspath(tree))
-    for name in [m for m in sys.modules if m.startswith('tpudet3d_torch')]:
-        del sys.modules[name]
+    use_tree(tree)
     from tpudet3d_torch.detect import (decode_detections,
                                        decode_detections_plain,
                                        generate_anchors)

@@ -3,7 +3,6 @@
 packed rows [B,26] or the next pass's boxes [B,4].
 
     python tpudet3d_torch/tools/k4_bench.py [--trees DIR ...] [--out FILE]
-    python tpudet3d_torch/tools/k4_bench.py --phase-copies DEST [--trees DIR]
 
 Checks the kernel against its plain version (on chip_smoke.py's inputs,
 with and without NaNs and ties in the logits), then times it at B=128
@@ -17,18 +16,10 @@ given (``--trees parent . . parent`` compares two checkouts in turns);
 every process makes the same inputs from the same seeds.  Prints a JSON
 line per run with the card's name and power limit and the K4 source's
 ``ptxas`` report.  ``--unchecked`` times trees whose K4 is not meant to be
-right and only records their error.  ``--phase-copies DEST`` writes
-copies of DIR's (or this checkout's) ``tpudet3d_torch`` to DEST/p1_loads
-(K4 stops after its loads), DEST/p2_argmax (after the argmax) and
-DEST/v_heads_after (no row staged: lanes 0-17 load the selected head
-after the argmax, a second round trip), and needs no CUDA.  Otherwise it
-needs CUDA.
+right and only records their error.  Needs CUDA.
 """
 
-import argparse
-import json
 import os
-import shutil
 import sys
 
 import torch
@@ -36,10 +27,10 @@ import torch
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from chip_smoke import K4_REFINE, k4_inputs  # noqa: E402
-from tpudet3d_torch.tools.k1_bench import (cycle_ms, device_ms,  # noqa: E402
-                                           gpu_line, launch_floor_ms,
-                                           run_trees)
+from chip_smoke import K4_REFINE, k4_error, k4_inputs  # noqa: E402
+from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
+                                           cycle_ms, device_ms, gpu_line,
+                                           launch_floor_ms, use_tree)
 
 # (B, mode, TTA); the first is the serving path's last pass
 CASES = tuple((b, mode, tta) for b in (128, 8) for mode in ('pack', 'refine')
@@ -56,23 +47,9 @@ def case_args(b, mode, tta, dev, nan_ties=False, seed=5):
     return (pre, logits.bfloat16(), boxes), kw
 
 
-def k4_errors(out, ref, refine):
-    """(max error, whether it is within K4's tolerance): refine boxes
-    within 1e-4 px; pack keypoints within 1e-6 and the rest exact."""
-    if refine:
-        e = (out - ref).abs().max().item()
-        return e, e <= 1e-4
-    e = (out[:, 6:24] - ref[:, 6:24]).abs().max().item()
-    rest = [0, 1, 2, 3, 4, 5, 24, 25]
-    exact = torch.equal(out[:, rest], ref[:, rest])
-    return (e if exact else float('inf')), exact and e <= 1e-6
-
-
 def run_tree(tree, checked=True):
     """Times the K4 of the ``tpudet3d_torch`` found in ``tree``."""
-    sys.path.insert(0, os.path.abspath(tree))
-    for name in [m for m in sys.modules if m.startswith('tpudet3d_torch')]:
-        del sys.modules[name]
+    use_tree(tree)
     from tpudet3d_torch.infer.epilogue import (head_epilogue,
                                                head_epilogue_plain)
     from tpudet3d_torch.kernels.build import build
@@ -85,9 +62,9 @@ def run_tree(tree, checked=True):
         name = f'b{b}_{mode}' + ('_tta' if tta else '')
         for nan_ties in (False, True):
             args, kw = case_args(b, mode, tta, dev, nan_ties)
-            e, ok = k4_errors(head_epilogue(*args, **kw),
-                              head_epilogue_plain(*args, **kw),
-                              mode == 'refine')
+            e, ok = k4_error(head_epilogue(*args, **kw),
+                             head_epilogue_plain(*args, **kw),
+                             mode == 'refine')
             if checked and not ok:
                 raise RuntimeError(f'k4_bench: K4 of {tree} disagrees on '
                                    f'{name} (NaN/ties {nan_ties}): {e}')
@@ -103,102 +80,8 @@ def run_tree(tree, checked=True):
                 cases=cases, ptxas=ptxas.strip())
 
 
-# K4's source around its phases, as phase_copies finds them
-_STAGE = '''#pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int i = lane + 32 * k;
-    if (i < kRow) {
-      rows[warp][0][i] = r[k];
-      if (p.tta) rows[warp][1][i] = rm[k];
-    }
-  }
-'''
-_LOADS = '''  float r[kLoads], rm[kLoads];
-#pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int i = lane + 32 * k;
-    r[k] = i < kRow ? row[i] : 0.f;
-    rm[k] = p.tta && i < kRow ? row_m[i] : 0.f;
-  }
-'''
-_ARGMAX_END = ('  const int label = '
-               '__ffs(__ballot_sync(kFull, key == top)) - 1;\n'
-               '  __syncwarp();\n')
-_HEAD = ('rows[warp][0][label * 18 + lane]',
-         'rows[warp][1][label * 18 + lane]')
-# keeps every load alive in a copy that stops early
-_KEEP = '''  __syncwarp();
-  float keep = a + m + own + bx[0];
-#pragma unroll
-  for (int k = 0; k < kLoads; ++k)
-    if (lane + 32 * k < kRow)
-      keep += rows[warp][0][lane + 32 * k] + rows[warp][1][lane + 32 * k];
-'''
-
-
-def phase_copies(tree, dest):
-    """Writes the copies of ``tree``'s ``tpudet3d_torch`` whose K4 stops
-    after a phase, or loads the selected head after the argmax (see the
-    module's note), to ``dest``; returns their directories."""
-    base = os.path.join(tree, 'tpudet3d_torch')
-    with open(os.path.join(base, 'kernels/csrc/head_epilogue.cu')) as f:
-        src = f.read()
-    for mark in (_STAGE, _LOADS, _ARGMAX_END) + _HEAD:
-        if src.count(mark) != 1:
-            raise ValueError(f'head_epilogue.cu of {tree} lacks '
-                             f'{mark.strip()!r}')
-    after = src.replace(_STAGE, '').replace(_LOADS, '')
-    copies = {
-        'p1_loads': src.replace(_STAGE, _STAGE + _KEEP + (
-            '  if (keep == 12345.f) out[b] = keep;\n  return;\n')),
-        'p2_argmax': src.replace(_ARGMAX_END, _ARGMAX_END + _KEEP + (
-            '  if (keep == 12345.f || label == 99) out[b] = keep;\n'
-            '  return;\n')),
-        'v_heads_after': after.replace(_HEAD[0], 'row[label * 18 + lane]')
-        .replace(_HEAD[1], 'row_m[label * 18 + lane]')}
-    out = []
-    for name, text in copies.items():
-        d = os.path.join(dest, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(base, os.path.join(d, 'tpudet3d_torch'),
-                        ignore=shutil.ignore_patterns('_build', '__pycache__'))
-        with open(os.path.join(
-                d, 'tpudet3d_torch/kernels/csrc/head_epilogue.cu'), 'w') as f:
-            f.write(text)
-        out.append(d)
-    return out
-
-
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--trees', nargs='+', default=None,
-                    help='checkouts to time in turns, each in a process of '
-                    'its own')
-    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
-    ap.add_argument('--unchecked', action='store_true',
-                    help='do not require the kernel to match its plain '
-                    'version')
-    ap.add_argument('--out', default='')
-    ap.add_argument('--phase-copies', default='', metavar='DEST',
-                    help='write copies of the K4 kernel that stop after a '
-                    'phase, or load the head late, to DEST and exit')
-    args = ap.parse_args()
-    if args.phase_copies:
-        print('\n'.join(phase_copies((args.trees or [os.getcwd()])[0],
-                                      args.phase_copies)))
-        return 0
-    if not torch.cuda.is_available():
-        print('k4_bench: CUDA is not available', file=sys.stderr)
-        return 1
-    if args.tree:
-        print(json.dumps(run_tree(args.tree, not args.unchecked)))
-        return 0
-    runs = run_trees(__file__, args.trees or [os.getcwd()],
-                     extra=['--unchecked'] if args.unchecked else [])
-    if args.out:
-        with open(args.out, 'w') as f:
-            json.dump(runs, f, indent=1)
-    return 0
+    return bench_main(__file__, __doc__, run_tree)
 
 
 if __name__ == '__main__':

@@ -2,33 +2,24 @@
 Objectron 9-keypoint boxes, f32 [P,9,3] x 2 -> [P].
 
     python tpudet3d_torch/tools/k5_bench.py [--trees DIR ...] [--out FILE]
-    python tpudet3d_torch/tools/k5_bench.py --phase-copies DEST [--trees DIR]
 
 Checks the kernel against its plain version (chip_smoke.py's random pairs
 at every P timed, and its exact cases), then times it at P=8 (the most
-one example of the evaluation protocol sends), P=128 (a batch of the
-metrics, ``eval/metrics.py``) and P=256 to 2048, back to back (CUDA
-events; the host's dispatch through ctypes may set it) and on the device
-(``torch.profiler``). Where the tree's K5 has a launch plan
-(``ops/box3d.py`` ``iou_plan``), it also times each number of pairs per
-CTA, forced at every P. In the same process it times the launch floor,
-the device time of an add on one float. With ``--trees``, each DIR's own
-``tpudet3d_torch``, its kernels built from its own sources, is timed in
-a process of its own, in the order given (``--trees parent . . parent``
+one example of the evaluation protocol sends) and P=128 (a batch of the
+metrics, ``eval/metrics.py``), back to back (CUDA events; the host's
+dispatch through ctypes may set it) and on the device
+(``torch.profiler``).  In the same process it times the launch floor, the
+device time of an add on one float.  With ``--trees``, each DIR's own
+``tpudet3d_torch``, its kernels built from its own sources, is timed in a
+process of its own, in the order given (``--trees parent . . parent``
 compares two checkouts in turns); every process makes the same inputs
-from the same seeds. Prints a JSON line per run with the card's name and
-power limit and the K5 source's ``ptxas`` report. ``--unchecked`` times
+from the same seeds.  Prints a JSON line per run with the card's name and
+power limit and the K5 source's ``ptxas`` report.  ``--unchecked`` times
 trees whose K5 is not meant to be right and only records their error.
-``--phase-copies DEST`` writes copies of DIR's (or this checkout's)
-``tpudet3d_torch`` whose K5 stops after a phase to DEST/p1_setup (the
-planes and the face quads only) and DEST/p2_clip (no fan triangulation),
-and needs no CUDA. Otherwise it needs CUDA.
+Needs CUDA.
 """
 
-import argparse
-import json
 import os
-import shutil
 import sys
 
 import torch
@@ -37,30 +28,19 @@ if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
 from chip_smoke import k5_exact_cases, k5_fuzz_pairs  # noqa: E402
-from tpudet3d_torch.tools.k1_bench import (cycle_ms, device_ms,  # noqa: E402
-                                           gpu_line, launch_floor_ms,
-                                           run_trees)
+from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
+                                           cycle_ms, device_ms, gpu_line,
+                                           launch_floor_ms, use_tree)
 
-PAIRS = (8, 128, 256, 512, 1024, 2048)
-# K5_ONE_PAIR_UP_TO that forces each number of pairs per CTA at every P
-PAIRS_PER_CTA = {1: 1 << 30, 2: 0}
-
-
-def k5_times(iou, a, b):
-    """``iou`` (a K5 wrapper) on the pairs ``a``, ``b``: ms back to back
-    and the device time."""
-    def call():
-        return iou(a, b)
-    return dict(ms=cycle_ms([call], 300), device_ms=device_ms(call, 200))
+PAIRS = (8, 128)
 
 
 def run_tree(tree, checked=True):
     """Times the K5 of the ``tpudet3d_torch`` found in ``tree``."""
-    sys.path.insert(0, os.path.abspath(tree))
-    for name in [m for m in sys.modules if m.startswith('tpudet3d_torch')]:
-        del sys.modules[name]
+    use_tree(tree)
     from tpudet3d_torch.kernels.build import build
-    from tpudet3d_torch.ops import box3d
+    from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
+                                          iou_oriented_boxes_plain)
     _, build_s, log = build()
     ptxas = next((part for part in log.split('== ')
                   if part.startswith('box3d_iou.cu')), '')
@@ -69,98 +49,28 @@ def run_tree(tree, checked=True):
                        for x in k5_fuzz_pairs(p, p)) for p in PAIRS}
     err = 0.0
     for a, b in inputs.values():
-        err = max(err, (box3d.iou_oriented_boxes(a, b)
-                        - box3d.iou_oriented_boxes_plain(a, b)).abs().max()
-                  .item())
+        err = max(err, (iou_oriented_boxes(a, b)
+                        - iou_oriented_boxes_plain(a, b)).abs().max().item())
     for _, x, y, want in k5_exact_cases():
-        got = box3d.iou_oriented_boxes(
+        got = iou_oriented_boxes(
             torch.tensor(x, dtype=torch.float32, device=dev),
             torch.tensor(y, dtype=torch.float32, device=dev))
         err = max(err, abs(float(got) - want))
     if checked and not err <= 1e-5:
         raise RuntimeError(f'k5_bench: K5 of {tree} disagrees: {err}')
-    times = {p: k5_times(box3d.iou_oriented_boxes, *ab)
-             for p, ab in inputs.items()}
-    sweep = None
-    if hasattr(box3d, 'iou_plan'):
-        saved, sweep = box3d.K5_ONE_PAIR_UP_TO, {}
-        try:
-            for n, up_to in PAIRS_PER_CTA.items():
-                box3d.K5_ONE_PAIR_UP_TO = up_to
-                sweep[n] = {p: k5_times(box3d.iou_oriented_boxes, *ab)
-                            for p, ab in inputs.items()}
-        finally:
-            box3d.K5_ONE_PAIR_UP_TO = saved
+    times = {}
+    for p, (a, b) in inputs.items():
+        def call(a=a, b=b):
+            return iou_oriented_boxes(a, b)
+        times[p] = dict(ms=cycle_ms([call], 300),
+                        device_ms=device_ms(call, 200))
     return dict(tree=tree, gpu=gpu_line(), build_s=build_s,
                 max_abs_err=err, floor_ms=launch_floor_ms(dev),
-                pairs=times, pairs_per_cta=sweep, ptxas=ptxas.strip())
-
-
-def phase_copies(tree, dest):
-    """Writes the copies of ``tree``'s ``tpudet3d_torch`` whose K5 stops
-    after a phase (see the module's note) to ``dest``; returns their
-    directories.  Each keeps a value of the phases it runs alive."""
-    base = os.path.join(tree, 'tpudet3d_torch')
-    with open(os.path.join(base, 'kernels/csrc/box3d_iou.cu')) as f:
-        src = f.read()
-    setup = '  __syncthreads();\n\n  if (live) {\n'
-    fan = '    // 3. fan triangulation'
-    fan_end = '  }\n  __syncthreads();\n  if (!live || t != 0) return;\n'
-    for mark in (setup, fan, fan_end):
-        if src.count(mark) != 1:
-            raise ValueError(f'box3d_iou.cu of {tree} lacks {mark.strip()!r}')
-    copies = {
-        'p1_setup': src.replace(setup, (
-            '  __syncthreads();\n'
-            '  if (live && t == 0)\n'
-            '    out[p] = s.box[0].det + s.box[1].b[5] + v.x + q_n.y;\n'
-            '  return;\n') + setup),
-        'p2_clip': src[:src.index(fan)] + (
-            '    if (i == 0) s.vols[face] = v.x + (float)count;\n')
-        + src[src.index(fan_end):]}
-    out = []
-    for name, text in copies.items():
-        d = os.path.join(dest, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(base, os.path.join(d, 'tpudet3d_torch'),
-                        ignore=shutil.ignore_patterns('_build', '__pycache__'))
-        with open(os.path.join(d, 'tpudet3d_torch/kernels/csrc/box3d_iou.cu'),
-                  'w') as f:
-            f.write(text)
-        out.append(d)
-    return out
+                pairs=times, ptxas=ptxas.strip())
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--trees', nargs='+', default=None,
-                    help='checkouts to time in turns, each in a process of '
-                    'its own')
-    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
-    ap.add_argument('--unchecked', action='store_true',
-                    help='do not require the kernel to match its plain '
-                    'version')
-    ap.add_argument('--out', default='')
-    ap.add_argument('--phase-copies', default='', metavar='DEST',
-                    help='write copies of the K5 kernel that stop after a '
-                    'phase to DEST and exit')
-    args = ap.parse_args()
-    if args.phase_copies:
-        print('\n'.join(phase_copies((args.trees or [os.getcwd()])[0],
-                                      args.phase_copies)))
-        return 0
-    if not torch.cuda.is_available():
-        print('k5_bench: CUDA is not available', file=sys.stderr)
-        return 1
-    if args.tree:
-        print(json.dumps(run_tree(args.tree, not args.unchecked)))
-        return 0
-    runs = run_trees(__file__, args.trees or [os.getcwd()],
-                     extra=['--unchecked'] if args.unchecked else [])
-    if args.out:
-        with open(args.out, 'w') as f:
-            json.dump(runs, f, indent=1)
-    return 0
+    return bench_main(__file__, __doc__, run_tree)
 
 
 if __name__ == '__main__':
