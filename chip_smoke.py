@@ -34,6 +34,21 @@ Phases, each fatal on failure:
    launched; re-score the same lifted predictions with the plain K5 (same
    IoUs, same report text); hold the card's float32 EPnP lift against the
    float64 host lift; time examples/s and its split.
+6. Serve the flagship configuration from converted snapshots at full
+   width: write a cascade MNv2-SSD-300 w1.0 and an EfficientNet-lite0
+   regressor whose EMA differs from its weights (seeded) as ``snap_3.pt``
+   files; ``build_engine`` on ``configs/scene_regressor_el0_ema.py``
+   (serves the EMA) through ``infer_batch`` (16 frames), checked as in
+   phase 3, with rows equal bit for bit to an engine of the same modules
+   in memory; ``configs/scene_regressor_el0_r288.py`` (288² crops)
+   through ``infer_batch``; el0 serving frames/s and latency as in phase
+   4; ``tools/demo.py``'s ``run`` with the tracker over 32 720p frames of
+   moving boxes (tracks kept, each result equal to ``infer_batch`` of its
+   frame, frames/s, the assignment route); the ``Detector`` wrapper over
+   4 frames (K1 and K3 against their plain versions).  Each of these runs
+   counts every kernel's launches (K5's too) and must give exactly the
+   path's own: one K1 and K3 a batch or frame, one K2 and K4 a regress
+   pass, no K5.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -41,6 +56,7 @@ printing no result, when CUDA is unavailable or any phase fails.
 """
 
 import argparse
+import contextlib
 import io
 import json
 import re
@@ -181,7 +197,8 @@ def touched_pixels(boxes, h, w, out_hw):
 # and 4 px upscaled 10x and 56x to 224; 'portrait': the evaluation path's
 # 1280x720 frames; 'n1': one frame; 'out64x48' and 'out62x50': output sizes
 # of the CPU tests, 50 columns not a multiple of the kernel's 8-pixel runs
-# and 62 rows not a multiple of its band.
+# and 62 rows not a multiple of its band; 'r288': the serving path of
+# configs/scene_regressor_el0_r288.py (288² crops, 18 bands of 16 rows).
 K2_CASES = (('serving', (16, 720, 1280), 'engine', (224, 224)),
             ('tiny', (2, 720, 1280), 'tiny', (224, 224)),
             ('border', (2, 720, 1280), 'border', (224, 224)),
@@ -190,7 +207,8 @@ K2_CASES = (('serving', (16, 720, 1280), 'engine', (224, 224)),
             ('portrait', (2, 1280, 720), 'engine', (224, 224)),
             ('n1', (1, 720, 1280), 'engine', (224, 224)),
             ('out64x48', (2, 720, 1280), 'engine', (64, 48)),
-            ('out62x50', (2, 720, 1280), 'border', (62, 50)))
+            ('out62x50', (2, 720, 1280), 'border', (62, 50)),
+            ('r288', (16, 720, 1280), 'engine', (288, 288)))
 K2_TOLS = ((torch.bfloat16, 2 ** -7 + 1e-4), (torch.float32, 1e-4))
 
 
@@ -268,6 +286,17 @@ def check_k2(dev, ops, norm):
         + boxes.numel() * 4 + n_out * 3 * 2
     n_ops = n_out * 3 * 8
     frames = batches[0]
+    # the r288 config's pass: the same 128 boxes' shape of crop at 288²
+    f288, b288, hw288 = k2_case('r288', dev)
+    args288 = (hw288, True, norm[0], norm[1], False, torch.bfloat16)
+    times.update(
+        ms_288=time_ms(lambda: crop_and_resize(f288, b288, *args288), 50),
+        device_ms_288=profile_call(lambda: crop_and_resize(
+            f288, b288, *args288))[1],
+        bound_ms_288=bound_ms(
+            3 * touched_pixels(b288, *FRAME[:2], hw288) + b288.numel() * 4
+            + b288.shape[0] * b288.shape[1] * 288 * 288 * 3 * 2,
+            b288.shape[0] * b288.shape[1] * 288 * 288 * 3 * 8)[0])
     return dict(
         err=err, **times,
         plain_ms=time_ms(lambda: crop_and_resize_plain(
@@ -962,6 +991,229 @@ def eval_path(dev, wrappers):
     return out
 
 
+# Phase 6: the flagship regressor config, its 288² variant, the frames of
+# the demo loop (moving_frames) and of the Detector
+EL0_CONFIG = 'configs/scene_regressor_el0_ema.py'
+R288_CONFIG = 'configs/scene_regressor_el0_r288.py'
+DEMO_FRAMES = 32
+DETECTOR_FRAMES = 4
+
+
+def write_snapshots(root):
+    """Phase 6a: a cascade MNv2-SSD-300 w1.0 and an EfficientNet-lite0
+    regressor (seeded) as converted snapshots ``snap_3.pt`` under ``root``;
+    the regressor's EMA differs from its raw weights.  Returns the paths,
+    the in-memory modules and the state_dicts."""
+    import os
+    from tpudet3d_torch.core import read_py_config
+    from tpudet3d_torch.infer.build import build_detector
+    from tpudet3d_torch.models import build_model
+    from tpudet3d_torch.utils.checkpoint import save_converted
+
+    def weights(module):
+        return {k: v.detach().clone() for k, v in module.state_dict().items()
+                if not k.endswith('num_batches_tracked')}
+
+    gen = torch.Generator().manual_seed(6)
+    det = build_detector(cascade=True, generator=gen)
+    reg = build_model(read_py_config(EL0_CONFIG), generator=gen)
+    params = weights(reg)
+    ema = {k: v if 'running_' in k else v + 0.01 * torch.randn(
+        v.shape, generator=gen) for k, v in params.items()}
+    paths = {}
+    for kind, sd, extra in (('detector', weights(det), None),
+                            ('regressor', params, ema)):
+        os.makedirs(os.path.join(root, kind))
+        paths[kind] = save_converted(os.path.join(root, kind, 'snap_3.pt'),
+                                     kind, 3, sd, extra)
+    return paths, det, reg, params, ema
+
+
+def drive(wrappers, fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns its
+    result and the counts read just after it."""
+    for f in wrappers:
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [f.launches for f in wrappers]
+
+
+def moving_frames(n, shape=None, seed=7):
+    """n BGR frames of ``shape`` (default FRAME): noise with 3 flat boxes
+    moving 3 px right and 1 px down a frame."""
+    h, w, _ = shape or FRAME
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    boxes = [(int(w * x0), int(h * y0), int(w * x1), int(h * y1)) for
+             x0, y0, x1, y1 in ((0.15, 0.2, 0.33, 0.55), (0.47, 0.28, 0.64,
+                                                         0.72),
+                                (0.7, 0.42, 0.86, 0.83))]
+    colors = rng.randint(0, 256, (3, 3))
+    out = []
+    for t in range(n):
+        f = base.copy()
+        for (x0, y0, x1, y1), c in zip(boxes, colors):
+            f[y0 + t:y1 + t, x0 + 3 * t:x1 + 3 * t] = c
+        out.append(f)
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, so that two runs of the same
+    weights on the same inputs can be held bit for bit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def same_results(a, b, what):
+    for r, q in zip(a, b):
+        for k in r:
+            expect(np.array_equal(r[k], q[k]), f'{what}: {k} differs')
+
+
+def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
+    """Phase 6: the flagship EfficientNet-lite0 regressor and the cascade
+    detector served from converted snapshots at full width; returns its
+    numbers.  Each drive of a path is counted by :func:`drive`, and every
+    kernel's count (K5's too) must equal what the path fixes; the
+    comparisons with the plain versions are not counted."""
+    import tempfile
+    from tpudet3d_torch import native
+    from tpudet3d_torch.infer import (Detector, IOUTracker,
+                                      IOUTrackerConfig, TwoStageEngine,
+                                      build_engine)
+    from tpudet3d_torch.tools import demo
+    resize, crop, decode, epilogue, _ = wrappers
+    h, w = FRAME[:2]
+    out = {'launches': {}}
+
+    def counted(name, fn, expected):
+        res, n = drive(wrappers, fn)
+        print(f'phase 6 {name}: launches K1/K2/K3/K4/K5 = {n}')
+        want = [expected.get(f, 0) for f in wrappers]
+        expect(n == want, f'{name}: launches {n}, expected {want}')
+        out['launches'][name] = n
+        return res
+
+    def per_pass(engine, frames):
+        """One K1 and K3 launch per frame or batch, one K2 and K4 a pass."""
+        passes = 1 + int(engine.cfg.refine_passes)
+        return {resize: frames, decode: frames, crop: frames * passes,
+                epilogue: frames * passes}
+
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the snapshots; (b) the el0 engine served from them
+        paths, det, reg, params, ema = write_snapshots(root)
+        engine = build_engine(EL0_CONFIG, det_checkpoint=paths['detector'],
+                              reg_checkpoint=paths['regressor'],
+                              det_conf=0.0, device=dev)
+        r288 = build_engine(R288_CONFIG, det_checkpoint=paths['detector'],
+                            reg_checkpoint=paths['regressor'], det_conf=0.0,
+                            device=dev)
+    expect(engine.det_model.cascade and engine.det_model.width_mult == 1.0,
+           'the detector snapshot did not give a cascade w1.0')
+    key = 'backbone.blocks_9.ConvBN_1.Conv_0.weight'      # a 5x5 depthwise
+    served = engine.reg_model.state_dict()[key].cpu()
+    expect(torch.equal(served, ema[key]) and not torch.equal(served,
+                                                             params[key]),
+           'the EMA config does not serve the EMA weights')
+    expect(torch.equal(r288.reg_model.state_dict()[key].cpu(), params[key]),
+           'the config without EMA does not serve the raw weights')
+    batch = counted('el0 infer_batch(16)',
+                    lambda: engine.infer_batch(frames_np),
+                    per_pass(engine, 1))
+    check_results(batch, h, w)
+    n_det = sum(len(r['scores']) for r in batch)
+    expect(n_det > 0, 'el0: no detection')
+    out['errs'] = path_intermediates(engine, frames_np, plain, norm)
+    # loading is lossless: the same modules in memory give the same rows
+    reg.load_state_dict(ema, strict=False)
+    memory = TwoStageEngine(det, reg, engine.cfg, device=dev)
+    with cudnn_deterministic():
+        same_results(engine.infer_batch(frames_np),
+                     memory.infer_batch(frames_np),
+                     'el0 from snapshots against the modules in memory')
+    del memory
+    print(f'el0 from snapshots: {n_det} detections over {len(batch)} '
+          'frames, rows equal to the in-memory engine bit for bit')
+
+    # (c) the r288 config: 288² crops
+    expect(r288.cfg.crop_size == (288, 288), 'r288 crop size')
+    res = counted('r288 infer_batch(16)', lambda: r288.infer_batch(
+        frames_np), per_pass(r288, 1))
+    check_results(res, h, w)
+    expect(sum(len(r['scores']) for r in res) > 0, 'r288: no detection')
+    del r288
+
+    # (d) el0 serving times
+    out['serving'] = serving_times(engine, dev, iters)
+
+    # (e) the demo loop: pipelined engine and tracker over moving frames
+    frames = moving_frames(DEMO_FRAMES)
+    tracker = IOUTracker(**vars(IOUTrackerConfig()))
+    stats = {}
+    loop = counted('demo loop', lambda: list(demo.run(
+        iter([f.copy() for f in frames]), engine, tracker, stats=stats)),
+        per_pass(engine, DEMO_FRAMES))
+    expect(len(loop) == DEMO_FRAMES, 'demo loop frame count')
+    with cudnn_deterministic():
+        for f, (_, result, _) in zip(frames, demo.run(
+                iter([f.copy() for f in frames]), engine,
+                IOUTracker(**vars(IOUTrackerConfig())))):
+            same_results([result], engine.infer_batch(f[None]),
+                         'demo loop against infer_batch of one frame')
+    lengths = [len(t) for t in tracker.get_tracks()]
+    labelled = sum(o.label != 'ID -1' for _, _, objs in loop for o in objs)
+    expect(max(lengths, default=0) >= 5, 'no track lived 5 frames')
+    route = 'native' if native.native_available() else 'scipy'
+    out['demo'] = dict(frames=DEMO_FRAMES, fps=DEMO_FRAMES / stats['seconds'],
+                       seconds=stats['seconds'], longest_track=max(lengths),
+                       labelled_objects=labelled, assignment=route)
+    print(f'demo loop: {DEMO_FRAMES} frames of 720p at '
+          f'{out["demo"]["fps"]:.2f} frames/s, longest track '
+          f'{max(lengths)} frames, {labelled} labelled objects, '
+          f'assignment route {route}; results equal infer_batch of one frame')
+
+    # (f) split inference: the Detector wrapper (K1, K3)
+    detector = Detector(engine.det_model, conf=0.0, device=dev)
+    split = counted('Detector', lambda: [detector.get_detections(f) for f in
+                                         frames[:DETECTOR_FRAMES]],
+                    {resize: DETECTOR_FRAMES, decode: DETECTOR_FRAMES})
+    for f, got in zip(frames[:DETECTOR_FRAMES], split):
+        with torch.no_grad():
+            got_again = check_detector(detector, f, plain)
+        expect(got_again == got, 'Detector output differs from its '
+               "kernels' path")
+    expect(sum(map(len, split)) > 0, 'Detector: no detection')
+    return out
+
+
+def check_detector(detector, f, plain):
+    """The Detector wrapper's own intermediates on frame ``f``: K1 and K3
+    against their plain versions on the path's inputs; returns the
+    detections that the wrapper decodes from the kernels' outputs."""
+    from tpudet3d_torch.infer.engine import upload
+    resize_plain, _, decode_plain = plain[:3]
+    t = upload(f, detector.device)
+    det_in, logits, deltas, dets = detector._detect(t)
+    e1 = max_err(det_in, resize_plain(t[None], (300, 300),
+                                      detector.input_is_bgr, 1 / 255.0))
+    print(f'Detector K1: max |kernel - plain| = {e1:.3g} (tol '
+          f'{2 ** -8:.3g})')
+    expect(e1 <= 2 ** -8, f'Detector K1 disagrees: {e1}')
+    compare_dets(dets, decode_plain(logits, deltas, detector.anchors,
+                                    **detector.decode_kwargs()),
+                 'Detector K3')
+    rows = detector._to_frame(dets[0], *f.shape[:2])
+    return detector._decode(rows.cpu().numpy(), f.shape)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -986,6 +1238,11 @@ def run(dev, out_path, iters=20):
                                     resize_bilinear, resize_bilinear_plain,
                                     resize_weights)
     iou = box3d.iou_oriented_boxes
+    t0, phase_s = time.perf_counter(), {}
+
+    def done(phase):
+        phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     norm = (REG_SCALE, REG_OFFSET)
@@ -998,6 +1255,7 @@ def run(dev, out_path, iters=20):
     print(log.strip())
     gpu = gpu_line()
     print(gpu)
+    done('1 build')
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1014,6 +1272,7 @@ def run(dev, out_path, iters=20):
     k5 = check_k5(dev, (iou, box3d.iou_oriented_boxes_plain,
                         box3d.iou_single_host), box3d)
     del frames
+    done('2 kernels')
 
     # 3. the serving path at full width
     engine = build_engine(det_conf=0.0, device=dev)
@@ -1034,17 +1293,39 @@ def run(dev, out_path, iters=20):
         decode_detections_plain, crop_and_resize, head_epilogue,
         head_epilogue_plain), norm)
 
+    done('3 serving path')
+
     # 4. serving times
     times = serving_times(engine, dev, iters)
     print(f'serving on {gpu}: ' + ', '.join(
         f'{k} {v:.2f}' for k, v in times.items() if not k.endswith('spread')))
     del engine
+    done('4 serving times')
 
     # 5. the evaluation path at full width
     evaluation = eval_path(dev, wrappers + (iou,))
+    done('5 evaluation path')
+
+    # 6. the flagship EfficientNet-lite0 regressor and the cascade detector
+    # from converted snapshots: serving, 288² crops, times, the demo loop
+    # with the tracker, and the Detector wrapper
+    flagship = flagship_path(dev, wrappers + (iou,), frames_np, (
+        resize_bilinear_plain, crop_and_resize_plain,
+        decode_detections_plain, crop_and_resize, head_epilogue,
+        head_epilogue_plain), norm, max(iters // 2, 1))
+    el0 = flagship['serving']
+    print(f'el0 serving on {gpu}: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in el0.items() if not k.endswith('spread')))
+    print(f'el0 demo loop on {gpu}: {flagship["demo"]["fps"]:.2f} frames/s '
+          f'over {flagship["demo"]["frames"]} frames of 720p, assignment '
+          f'route {flagship["demo"]["assignment"]}')
+    runs = flagship['launches']
+    done('6 flagship path')
+    print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
+                                           for k, v in phase_s.items()))
 
     kernels = []
-    for (name, src, replaces, m, err), n, n_eval in zip((
+    for (name, src, replaces, m, err), n, n_eval, n_el0 in zip((
             ('K1 preprocess_resize', 'tpudet3d_torch/kernels/csrc/resize.cu',
              'tpudet3d/ops/image.py:19', k1, max(k1['err'], e1)),
             ('K2 crop_resize_normalize', 'tpudet3d_torch/kernels/csrc/crop.cu',
@@ -1059,18 +1340,23 @@ def run(dev, out_path, iters=20):
              'tpudet3d/ops/box3d.py:161', k5,
              max(k5['err'], evaluation['k5_err']))),
             launches + [evaluation['launches'][4]],
-            evaluation['launches']):
+            evaluation['launches'], runs['el0 infer_batch(16)']):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': src,
             'replaces': replaces, 'launches': n, 'max_abs_err': err,
             'ms': m['ms'], 'plain_ms': m['plain_ms'],
             'bound_ms': m['bound'][0], 'bound_by': m['bound'][1],
-            'library_ms': m['library_ms'], 'launches_eval': n_eval})
+            'library_ms': m['library_ms'], 'launches_eval': n_eval,
+            'launches_el0': n_el0})
+    for i, k in enumerate(kernels):
+        k['launches_flagship'] = {run: n[i] for run, n in runs.items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
     kernels[1].update(ms_cold=k2['ms_cold'], ms_mirror=k2['ms_mirror'],
                       ms_n1=k2['ms_n1'], device_ms=k2['device_ms'],
+                      ms_288=k2['ms_288'], device_ms_288=k2['device_ms_288'],
+                      bound_ms_288=k2['bound_ms_288'],
                       device_ms_n1=k2['device_ms_n1'],
                       library_ms_cold=k2['library_ms_cold'])
     kernels[2].update(ms_soft=k3['ms_soft'], ms_vote=k3['ms_vote'],
@@ -1092,7 +1378,9 @@ def run(dev, out_path, iters=20):
         print(f"{k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {lib}, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['launches']} launches on its main "
-              f"path ({k['launches_eval']} on the evaluation path), max "
+              f"path ({k['launches_eval']} on the evaluation path, "
+              f"{k['launches_el0']} on el0 infer_batch(16), "
+              f"{k['launches_flagship']['demo loop']} on the demo loop), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -1100,7 +1388,8 @@ def run(dev, out_path, iters=20):
         with open(out_path, 'w') as f:
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
                        'serving': times, 'max_det_128': wide,
-                       'evaluation': evaluation,
+                       'evaluation': evaluation, 'flagship': flagship,
+                       'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)
     print(json.dumps({'ok': True, 'device': {

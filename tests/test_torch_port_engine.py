@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX ``TwoStageEngine`` (CPU, f32).
 
 Both engines get the same frames and the same weights: an SSD at width 0.25
-and the MNv3-large-21k regressor at 64² crops, max_detections 4.  The JAX
+and the MNv3-large-21k regressor (EfficientNet-lite0 in the ``el0`` case) at
+64² crops, max_detections 4.  The JAX
 engine preprocesses in bf16 whatever the model dtype; for this f32
 comparison its two preprocessing calls run with their f32 compute dtype
 (``resize_bilinear(dtype=f32)``, ``crop_and_resize(compute_dtype=f32)``),
@@ -47,28 +48,23 @@ CONFIGS = {
     'soft_vote_refine_tta': dict(soft_nms_sigma=0.5, box_vote_iou=0.6,
                                  crop_margin_px=10.0, refine_passes=1,
                                  tta_flip=True),
+    'el0': dict(),
 }
+# the regressor of each config; the default is the MNv3-large-21k of
+# ``weights``
+REGRESSOR = {'el0': 'efficientnet-lite0'}
 BASE = dict(det_conf=0.0, max_detections=4, crop_size=(64, 64))
 
 
 @pytest.fixture(scope='module')
 def weights():
-    key = jax.random.PRNGKey(0)
     det = JaxSSD(num_classes=9, width_mult=0.25)
     dv = perturb(flax_init(det, jnp.zeros((1, 300, 300, 3))), seed=11)
     for i in range(2):
         head = dv['params'][f'cls_heads_{i}']['Conv_0']
         head['kernel'] = head['kernel'] * DET_SCALE
         head['bias'] = head['bias'] * DET_SCALE
-    cfg = AttrDict(model=dict(name='mobilenetv3_large_21k', pretrained=False,
-                              num_classes=9, bf16=False))
-    reg = jax_build_model(cfg)
-    rv = perturb(flax_init(reg, jnp.zeros((1, 64, 64, 3), jnp.float32),
-                           jnp.zeros((1,), jnp.int32),
-                           rngs={'params': key, 'dropout': key}), seed=12)
-    rv['params']['cls_fc']['kernel'] = (rv['params']['cls_fc']['kernel']
-                                       * REG_SCALE)
-    return det, dv, reg, rv
+    return (det, dv) + regressor_weights('mobilenetv3_large_21k')
 
 
 @pytest.fixture(autouse=True)
@@ -89,6 +85,30 @@ def f32_jax_preprocess(monkeypatch):
                                                     compute_dtype=jnp.float32))
 
 
+def regressor_weights(name, seed=12):
+    """Flax module and perturbed numpy variables of the regressor ``name``
+    at 64² crops, ``cls_fc`` scaled by REG_SCALE."""
+    key = jax.random.PRNGKey(0)
+    cfg = AttrDict(model=dict(name=name, pretrained=False, num_classes=9,
+                              bf16=False))
+    reg = jax_build_model(cfg)
+    rv = perturb(flax_init(reg, jnp.zeros((1, 64, 64, 3), jnp.float32),
+                           jnp.zeros((1,), jnp.int32),
+                           rngs={'params': key, 'dropout': key}), seed=seed)
+    rv['params']['cls_fc']['kernel'] = (rv['params']['cls_fc']['kernel']
+                                       * REG_SCALE)
+    return reg, rv
+
+
+@pytest.fixture(scope='module')
+def el0_engines(weights):
+    """The el0 engines, built once: the JAX engine keeps the programs it
+    compiles (the slow part) across the tests of this module."""
+    det, dv, _, _ = weights
+    return _engines((det, dv) + regressor_weights('efficientnet-lite0',
+                                                  seed=13), 'el0')
+
+
 def _engines(weights, config):
     det, dv, reg, rv = weights
     kw = dict(BASE, **CONFIGS[config])
@@ -97,7 +117,8 @@ def _engines(weights, config):
                         JaxEngineConfig(**kw))
     port_det = port_of(SSDDetector(num_classes=9, width_mult=0.25), dv)
     port_reg = port_of(build_model(PortAttrDict(model=dict(
-        name='mobilenetv3_large_21k', num_classes=9, bf16=False))), rv)
+        name=REGRESSOR.get(config, 'mobilenetv3_large_21k'), num_classes=9,
+        bf16=False))), rv)
     port_eng = TwoStageEngine(port_det, port_reg, EngineConfig(**kw),
                               device='cpu')
     return jax_eng, port_eng
@@ -135,8 +156,10 @@ def _assert_results_match(out, ref):
 
 @pytest.mark.parametrize('api', ['call', 'infer_batch'])
 @pytest.mark.parametrize('config', list(CONFIGS))
-def test_engine_matches_jax(weights, f32_jax_preprocess, config, api):
-    jax_eng, port_eng = _engines(weights, config)
+def test_engine_matches_jax(request, weights, f32_jax_preprocess, config,
+                            api):
+    jax_eng, port_eng = (request.getfixturevalue('el0_engines')
+                         if config == 'el0' else _engines(weights, config))
     frames = np.random.RandomState(7).randint(0, 256, (2, 360, 640, 3)) \
         .astype(np.uint8)
     counts = [resize_bilinear.launches, crop_and_resize.launches,

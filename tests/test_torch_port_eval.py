@@ -28,6 +28,13 @@ Tolerances and what they rest on:
   plus 0.003 noise, fed to both CLIs): each CLI with its own lift,
   protocol and K5, the lifts within 3e-4 and every lifted metric within
   a tolerance derived from the two lifted boxes (metric_tolerances).
+- CLIs from snapshots: both CLIs build their engines from
+  ``--reg_config configs/scene_regressor_el0.py`` (cut to 64² crops,
+  float32 and batch 2 by a config that executes it and overrides those
+  three) and from ``--det_checkpoint`` / ``--reg_checkpoint``: snapshots
+  the JAX package writes (the test detector and an EfficientNet-lite0
+  regressor), converted by ``scripts/snapshot_to_torch.py`` for the port.
+  The same two checks as ``test_cli_matches_jax``.
 """
 
 import io
@@ -62,9 +69,11 @@ from tpudet3d_torch.models import build_model
 from tpudet3d_torch.core import AttrDict as PortAttrDict
 from tpudet3d_torch.ops import geometry
 from tpudet3d_torch.ops.box3d import box_axes
+from test_torch_port_engine import regressor_weights
 from test_torch_port_engine import weights  # noqa: F401  (fixture)
 from chip_smoke import K4_REFINE, box_kps, k4_error, k4_inputs, rotation
-from torch_port_common import one_cpu_thread, port_of, set_no_tf32
+from torch_port_common import (config_file, one_cpu_thread, port_of,
+                               set_no_tf32)
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
                    'scripts')
@@ -535,13 +544,8 @@ class _Replay:
         return next(self._results)
 
 
-@pytest.fixture
-def cli_engines(weights, monkeypatch):  # noqa: F811
-    """Both CLIs build the small test engines from their flags; the JAX
-    preprocessing runs at float32.  Returns the JAX CLI module and the list
-    of the JAX engine's results."""
-    det, dv, reg, rv = weights
-    demo, jax_cli = _jax_cli()
+def _f32_jax_preprocess(monkeypatch):
+    """The JAX serving program's two preprocessing calls at float32."""
     resize, crop = jax_image.resize_bilinear, jax_image.crop_and_resize
     monkeypatch.setattr(jax_engine_mod, 'resize_bilinear',
                         lambda img, hw, dtype=None: resize(img, hw,
@@ -552,6 +556,16 @@ def cli_engines(weights, monkeypatch):  # noqa: F811
     monkeypatch.setattr(jax_wrappers, 'crop_and_resize',
                         lambda img, boxes, hw: crop(img, boxes, hw,
                                                     compute_dtype=jnp.float32))
+
+
+@pytest.fixture
+def cli_engines(weights, monkeypatch):  # noqa: F811
+    """Both CLIs build the small test engines from their flags; the JAX
+    preprocessing runs at float32.  Returns the JAX CLI module and the list
+    of the JAX engine's results."""
+    det, dv, reg, rv = weights
+    demo, jax_cli = _jax_cli()
+    _f32_jax_preprocess(monkeypatch)
     results = []
 
     def jax_engine(*a, **kw):
@@ -647,6 +661,84 @@ def test_cli_matches_jax(cli_engines, shards, tmp_path, monkeypatch,
         assert_reports_agree(text, ref_text, mean_atol=1e-5)
     port_log.clear()
     own = _run_port_cli(shards, tmp_path / 'own', monkeypatch, flags)
+    assert_pipeline_close(port_log, jax_log, own, ref)
+
+
+@pytest.fixture(scope='module')
+def el0_snapshots(weights, tmp_path_factory):  # noqa: F811
+    """The el0 config cut to the test's size, and orbax snapshots of the
+    test detector and of an EfficientNet-lite0 regressor, written by the
+    JAX package and converted for the port."""
+    import optax
+    from tpudet3d.core import read_py_config
+    from tpudet3d.detect.train import create_detector_state
+    from tpudet3d.train.pipeline import setup_training
+    from tpudet3d.utils.checkpoint import save_snap
+    sys.path.insert(0, SCRIPTS)
+    import snapshot_to_torch
+
+    root = tmp_path_factory.mktemp('el0_snaps')
+    det, dv, _, _ = weights
+    state = create_detector_state(det, optax.sgd(0.1), jax.random.PRNGKey(0))
+    save_snap(state.replace(params=dv['params'],
+                            batch_stats=dv['batch_stats']), 1,
+              str(root / 'det'))
+    cfg = config_file(root / 'scene_regressor_el0_64.py',
+                      'scene_regressor_el0.py', "model['bf16'] = False",
+                      "data['resize'] = (64, 64)",
+                      "data['train_batch_size'] = 2",
+                      f"output_dir = {str(root / 'unused')!r}")
+    _, rv = regressor_weights('efficientnet-lite0', seed=13)
+    state = setup_training(read_py_config(cfg),
+                           with_loaders=False).state
+    save_snap(state.replace(params=rv['params'],
+                            batch_stats=rv['batch_stats']), 2,
+              str(root / 'reg'))
+    for d in ('det', 'reg'):
+        snapshot_to_torch.main(['--all', str(root / d)])
+    return cfg, str(root / 'det' / 'snap_1'), str(root / 'reg' / 'snap_2')
+
+
+def test_cli_el0_snapshots_match_jax(el0_snapshots, shards, tmp_path,
+                                     monkeypatch, recorded):
+    """Both CLIs from the el0 config and the snapshots, each through its
+    own ``build_engine`` (the detectors at float32): strict on the JAX
+    engine's results and lift, then end to end."""
+    import tpudet3d.detect as jax_detect
+    import tpudet3d_torch.infer.build as port_build
+    cfg, det_snap, reg_snap = el0_snapshots
+    demo, jax_cli = _jax_cli()
+    _f32_jax_preprocess(monkeypatch)
+    load, port_load = jax_detect.load_detector, port_build.load_detector
+    monkeypatch.setattr(jax_detect, 'load_detector', lambda path, dtype:
+                        load(path, dtype=jnp.float32))
+    monkeypatch.setattr(port_build, 'load_detector', lambda path, **kw:
+                        port_load(path, **dict(kw, dtype=torch.float32)))
+    results = []
+
+    class Recording(_RecordingJaxEngine):
+        pass
+
+    Recording.results = results
+    monkeypatch.setattr(demo, 'TwoStageEngine', Recording)
+    flags = ['--det_tresh', '0', '--reg_config', cfg, '--det_checkpoint',
+             det_snap, '--reg_checkpoint', reg_snap]
+    port_log, jax_log = recorded
+    ref = _run_jax_cli(jax_cli, shards, tmp_path / 'jax', monkeypatch, flags)
+    assert sum(k == 'iou' for k, _, _, _ in jax_log) >= 6
+    strict = _run_port_cli(shards, tmp_path / 'strict', monkeypatch, flags,
+                           replay=results)
+    assert_metrics_agree(port_log, jax_log, atol=1e-5)
+    for text, ref_text in zip(strict, ref):
+        assert_reports_agree(text, ref_text, mean_atol=1e-5)
+    port_log.clear()
+    built = []
+    monkeypatch.setattr(port_cli, 'build_engine', lambda *a, **kw:
+                        built.append(port_build.build_engine(*a, **kw))
+                        or built[-1])
+    own = _run_port_cli(shards, tmp_path / 'own', monkeypatch, flags)
+    assert type(built[0].reg_model.backbone).__name__ == 'EfficientNetLite'
+    assert built[0].cfg.crop_size == (64, 64)
     assert_pipeline_close(port_log, jax_log, own, ref)
 
 

@@ -74,6 +74,21 @@ def test_k2_kernel_matches_plain(cuda, mirror, case, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('mirror', [False, True], ids=['tta_off', 'tta_on'])
+def test_k2_kernel_288(cuda, mirror):
+    """K2 at the r288 config's serving shape: 128 crops of 720p to 288²
+    (18 bands of 16 rows), bf16 and f32, with TTA (the mirror) off and on."""
+    frames, boxes, out_hw = k2_case('r288', cuda)
+    assert out_hw == (288, 288) and boxes.shape[:2] == (16, 8)
+    args = (out_hw, True, REG_SCALE, REG_OFFSET, mirror)
+    ref = crop_and_resize_plain(frames, boxes, *args)
+    for dtype, atol in K2_TOLS:
+        out = crop_and_resize(frames, boxes, *args, dtype=dtype)
+        assert out.shape == (128 * (1 + mirror), 288, 288, 3)
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('case', [c[0] for c in K3_CASES])
 def test_k3_kernel_matches_plain(cuda, case):
     logits, deltas, kw = k3_case(case, cuda)

@@ -4,6 +4,9 @@ Each model gets the same flax-initialised, perturbed weights through the
 weight bridge and the same numpy inputs.  Tolerance: rtol = atol = 1e-4 on
 every output, an f32 reordering margin for nets of this depth."""
 
+import glob
+import os.path as osp
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,19 +14,27 @@ import pytest
 import torch
 
 from tpudet3d.core import AttrDict
+from tpudet3d.core import read_py_config as jax_read_py_config
 from tpudet3d.detect import SSDDetector as JaxSSD
 from tpudet3d.models import build_model as jax_build_model
 from tpudet3d.models.mobilenetv2 import MobileNetV2 as JaxMNv2
 
 from tpudet3d_torch.detect import SSDDetector
+from tpudet3d_torch.infer import build_engine
 from tpudet3d_torch.models import MobileNetV2, build_model
 from tpudet3d_torch.utils.convert import jax_to_state_dict, load_jax_variables
 from torch_port_common import (flax_init, np_out, one_cpu_thread, perturb,
                                port_of, set_no_tf32, to_jax)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+CONFIGS = sorted(glob.glob(osp.join(osp.dirname(osp.dirname(
+    osp.abspath(__file__))), 'configs', 'scene_regressor*.py')))
 REGRESSORS = ['mobilenetv3_large', 'mobilenetv3_small',
               'mobilenetv3_large_21k']
+# EfficientNet-lite at an even and (lite0) an odd input size, where the
+# stride-2 5x5 depthwise convs' symmetric padding shows
+LITE_CASES = [('efficientnet-lite0', 64), ('efficientnet-lite0', 65),
+              ('efficientnet-lite1', 64), ('efficientnet-lite2', 64)]
 
 
 @pytest.fixture(autouse=True)
@@ -148,3 +159,48 @@ def test_convert_rejects_unmatched_keys(regressors):
     wrong['params']['head_bias'] = np.zeros((9, 17), np.float32)
     with pytest.raises(ValueError, match='head_bias'):
         load_jax_variables(port, wrong)
+
+
+@pytest.mark.parametrize('name,size', LITE_CASES,
+                         ids=[f'{n[-5:]}-{s}' for n, s in LITE_CASES])
+def test_efficientnet_lite(name, size):
+    """The whole regressor on an EfficientNet-lite backbone: export outputs
+    against ``flax.apply``, with the weights loaded by the strict key match
+    (every Flax leaf has a port key and the reverse)."""
+    model = jax_build_model(_reg_cfg(name))
+    key = jax.random.PRNGKey(0)
+    v = perturb(flax_init(model, jnp.zeros((1, size, size, 3), jnp.float32),
+                          jnp.zeros((1,), jnp.int32),
+                          rngs={'params': key, 'dropout': key}), seed=5)
+    x = np.random.RandomState(4).standard_normal((2, size, size, 3)) \
+        .astype(np.float32)
+    ref_kp, ref_logits = model.apply(to_jax(v), jnp.asarray(x), export=True)
+    port = build_model(_reg_cfg(name))
+    assert port.backbone.feature_dim == 1280
+    sd = jax_to_state_dict(v)
+    own = {k for k in port.state_dict() if not k.endswith(
+        'num_batches_tracked')}
+    assert own == set(sd), sorted(own ^ set(sd))[:8]
+    port_of(port, v)
+    with torch.no_grad():
+        kp, logits = port(torch.from_numpy(x))
+    np.testing.assert_allclose(np_out(kp), np.asarray(ref_kp), **TOL)
+    np.testing.assert_allclose(np_out(logits), np.asarray(ref_logits), **TOL)
+
+
+@pytest.mark.parametrize('path', CONFIGS, ids=[osp.basename(p)[:-3]
+                                               for p in CONFIGS])
+def test_build_engine_accepts_every_regressor_config(path, tmp_path,
+                                                     monkeypatch):
+    """Every regressor config builds its engine (random weights: run where
+    the configs' output directories do not exist) with the config's
+    backbone and crop size, as the JAX package's builder does."""
+    monkeypatch.chdir(tmp_path)
+    engine = build_engine(path, device='cpu')
+    cfg = jax_read_py_config(path)
+    jax_backbone = jax_build_model(cfg).backbone
+    assert type(engine.reg_model.backbone).__name__ == \
+        type(jax_backbone).__name__
+    assert engine.reg_model.backbone.feature_dim == 1280
+    assert engine.cfg.crop_size == tuple(cfg.data.resize)
+    assert engine.reg_model.dtype == torch.bfloat16

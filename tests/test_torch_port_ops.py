@@ -330,6 +330,15 @@ def test_k2_phase_copies(tmp_path):
         assert text != src and 'crop_band_kernel' in text
 
 
+def test_k2_plan_288():
+    """The r288 config's serving pass (128 crops of 720p to 288²): bands of
+    16 rows, 18 a crop, within the shared-memory limit."""
+    fp = crop_plan(1280, 288, 288, 128, 132)
+    assert fp.band == 16 and -(-288 // fp.band) == 18
+    assert fp.runs == 36
+    assert fp.smem_bytes == _align16(8 * 288 + 16 * 16) + K2_STAGE_BYTES
+
+
 def test_k2_plan_band_and_limit():
     """The tallest band that gives each of 132 SMs two CTAs: 16 rows for
     the serving path's 128 crops, 4 for one frame's 8, 1 for one crop.  The

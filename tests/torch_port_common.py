@@ -7,6 +7,7 @@ is exercised; the port loads them through ``utils/convert.py``.
 """
 
 import contextlib
+import os.path as osp
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ import torch
 from flax.core import unfreeze
 
 from tpudet3d_torch.utils.convert import load_jax_variables
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 _PERTURB = {
     'scale': lambda rng, s: rng.uniform(0.5, 1.5, s),
@@ -81,3 +84,13 @@ def one_cpu_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def config_file(path, base, *overrides):
+    """A config file at ``path`` that executes ``configs/<base>`` and then
+    each statement of ``overrides`` (e.g. ``"data['resize'] = (64, 64)"``):
+    a repo config cut to a test's size.  Returns the path as a string."""
+    lines = [f'exec(open({osp.join(REPO, "configs", base)!r}).read())',
+             *overrides]
+    path.write_text('\n'.join(lines) + '\n')
+    return str(path)

@@ -47,6 +47,7 @@ class SSDDetector(nn.Module):
         self.num_classes = num_classes
         self.dtype = dtype
         self.cascade = cascade
+        self.width_mult = width_mult
         self.backbone = MobileNetV2(width_mult=width_mult, out_stages=(4, 6))
         ks = num_anchors_per_level()
         chans = self.backbone.out_channels

@@ -30,7 +30,7 @@ from ..ops.image import crop_and_resize, resize_bilinear
 from .epilogue import head_epilogue, refine_boxes, tta_flip_average
 
 __all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
-           'tta_flip_average', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
+           'tta_flip_average', 'upload', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
            'REG_OFFSET']
 
 REG_MEAN = (0.5931, 0.4690, 0.4229)
@@ -82,6 +82,15 @@ class EngineConfig:
     # downscale frames on the host (cv2 INTER_AREA) before upload; boxes
     # are rescaled to source pixels on output
     host_downscale: int = 1
+
+
+def upload(frames, device):
+    """Host uint8 frames → a tensor on ``device``, through pinned memory
+    and without waiting for the copy on the card."""
+    t = torch.as_tensor(np.ascontiguousarray(frames))
+    if device.type == 'cuda':
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def _unpack(rows, scale=1.0):
@@ -214,10 +223,7 @@ class TwoStageEngine:
                                    self.cfg.refine_margin_px)
 
     def _upload(self, frames):
-        t = torch.as_tensor(np.ascontiguousarray(frames))
-        if self.device.type == 'cuda':
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return upload(frames, self.device)
 
     def shard(self, mesh):
         raise NotImplementedError(

@@ -1,11 +1,10 @@
-"""Model factory (counterpart of ``tpudet3d/models/builder.py``).
-
-Builds the MobileNetV3 family.  EfficientNet-lite belongs to a later slice
-of the port (ROADMAP.md, Queue 1).
-"""
+"""Model factory (counterpart of ``tpudet3d/models/builder.py``): the
+MobileNetV3 and EfficientNet-lite backbones under the multi-head
+regressor."""
 
 import torch
 
+from .efficientnet_lite import EFFNET_LITE_PARAMS, EfficientNetLite
 from .layers import init_weights
 from .mobilenetv3 import MobileNetV3, model_params
 from .wrapper import MultiHeadRegressor
@@ -23,9 +22,8 @@ def build_backbone(name):
         raise ValueError(f'Wrong model name parameter. Expected one of '
                          f'{__AVAI_MODELS__}')
     if name.startswith('efficientnet'):
-        raise NotImplementedError(
-            f'{name}: EfficientNet-lite is not ported yet; it belongs to a '
-            'later slice (ROADMAP.md, Queue 1)')
+        width, depth, _res, _drop = EFFNET_LITE_PARAMS[name]
+        return EfficientNetLite(width_mult=width, depth_mult=depth)
     params = model_params[name]
     return MobileNetV3(cfgs=params['cfgs'], mode=params['mode'],
                        timm_arch=params.get('timm_arch', False))

@@ -26,16 +26,20 @@ MNV2_CFG = (
 
 
 class _MBConv(nn.Module):
+    """Inverted residual with ReLU6 and no squeeze-excite: expand 1x1
+    (none when ``expand`` is 1) → depthwise kxk → project 1x1; identity
+    skip at stride 1 with in == out."""
 
-    def __init__(self, in_channels, out_channels, expand, strides):
+    def __init__(self, in_channels, out_channels, expand, strides,
+                 kernel_size=3):
         super().__init__()
         hidden = in_channels * expand
         self.identity = strides == 1 and in_channels == out_channels
         convs = []
         if expand != 1:
             convs.append(ConvBN(in_channels, hidden, 1, 1, act=F.relu6))
-        convs.append(ConvBN(hidden, hidden, 3, strides, groups=hidden,
-                            act=F.relu6))
+        convs.append(ConvBN(hidden, hidden, kernel_size, strides,
+                            groups=hidden, act=F.relu6))
         convs.append(ConvBN(hidden, out_channels, 1, 1, act=None))
         self.n_convs = len(convs)
         for i, m in enumerate(convs):

@@ -2,14 +2,21 @@
 ``scripts/objectron_eval.py``):
 
     python -m tpudet3d_torch.tools.objectron_eval --eval_data RECORDS \\
-        [--classes bike book ...] [--preset recall] [--device cpu]
+        [--classes bike book ...] [--preset recall] [--device cpu] \\
+        [--reg_config configs/scene_regressor_el0_hpo.py] \\
+        [--det_checkpoint output/<run>/snap_N] [--reg_checkpoint ...]
 
 Walks the per-class shards ``RECORDS/<class>/*``, runs the two-stage
 engine on each frame in batches of ``--batch`` (K1–K4), lifts every
 prediction to 3D with the batched EPnP (portrait), scores it with the
 protocol evaluator (K5, one call per example), and writes
-``report_<class>.txt`` under ``--report_dir``.  Everything runs on the card
-unless ``--device cpu``.  Decoding JPEG frames needs cv2, imported when
+``report_<class>.txt`` under ``--report_dir``.  ``--reg_config`` takes any
+regressor config (MobileNetV3 or EfficientNet-lite); the checkpoints are
+converted snapshots (``scripts/snapshot_to_torch.py``), named by the file
+or by the orbax ``snap_N`` directory beside it, and without
+``--reg_checkpoint`` the newest snapshot of the config's ``output_dir`` is
+served (``infer/build.py``).  Everything runs on the card unless
+``--device cpu``.  Decoding JPEG frames needs cv2, imported when
 the first record is decoded.
 
 Expected feature keys (Objectron eval shards): image/encoded (JPEG),

@@ -1,9 +1,12 @@
 """Where the serving path's device time goes, on one NVIDIA GPU.
 
-    python -m tpudet3d_torch.tools.profile_serving [--out FILE]
+    python -m tpudet3d_torch.tools.profile_serving [--reg_config CONFIG]
+        [--out FILE]
 
 Builds the default engine (MNv2-SSD-300 w1.0 + MNv3-large-21k, bf16, 224²
-crops, max_detections 8, random weights from seed 0), runs 5 calls of
+crops, max_detections 8, random weights from seed 0; ``--reg_config``
+names another regressor config, e.g.
+``configs/scene_regressor_el0_hpo.py``), runs 5 calls of
 ``_pipeline_batch`` at batches 1, 16 and 32 after three warm-up calls,
 first timed alone and then under ``torch.profiler``, and prints for each
 batch: wall time per call (unprofiled), device busy time per call (the sum
@@ -104,14 +107,17 @@ def profile_batch(engine, batch, steps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--reg_config', default='',
+                    help='regressor config (default: MNv3-large-21k)')
     ap.add_argument('--out', default='')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('profile_serving: CUDA is not available', file=sys.stderr)
         return 1
     from tpudet3d_torch.infer import build_engine
-    engine = build_engine(det_conf=0.0)
+    engine = build_engine(args.reg_config, det_conf=0.0)
     report = {'gpu': torch.cuda.get_device_name(0),
+              'reg_config': args.reg_config,
               'torch': torch.__version__, 'runs': []}
     for b in BATCHES:
         r = profile_batch(engine, b, STEPS)

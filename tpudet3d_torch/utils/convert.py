@@ -20,7 +20,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ['jax_to_state_dict', 'load_jax_variables']
+__all__ = ['jax_to_state_dict', 'load_jax_variables', 'load_state_dict_strict']
 
 _LEAF = {
     ('params', 'scale'): 'weight',
@@ -69,11 +69,10 @@ def jax_to_state_dict(variables):
     return out
 
 
-def load_jax_variables(module, variables):
-    """Load converted JAX variables into ``module``.  Raises on any key left
-    unmatched on either side (BatchNorm's ``num_batches_tracked`` has no
-    JAX counterpart and is left as it is) and on any shape mismatch."""
-    sd = jax_to_state_dict(variables)
+def load_state_dict_strict(module, sd):
+    """Load ``sd`` into ``module``.  Raises on any key left unmatched on
+    either side (BatchNorm's ``num_batches_tracked`` has no JAX counterpart
+    and is left as it is) and on any shape mismatch."""
     own = module.state_dict()
     expected = {k for k in own if not k.endswith('num_batches_tracked')}
     missing = sorted(expected - sd.keys())
@@ -88,3 +87,9 @@ def load_jax_variables(module, variables):
         raise ValueError(f'shape mismatch (key, JAX, port): {bad[:8]}')
     module.load_state_dict(sd, strict=False)
     return module
+
+
+def load_jax_variables(module, variables):
+    """Load converted JAX variables into ``module`` strictly
+    (:func:`load_state_dict_strict`)."""
+    return load_state_dict_strict(module, jax_to_state_dict(variables))
