@@ -30,8 +30,9 @@ Phases, each fatal on failure:
 5. Drive the evaluation path at full width: ``objectron_eval``'s
    ``evaluate_category`` over 2 categories × 24 synthetic portrait
    1280×720 examples at batch 8, with the CLI's defaults at ``det_tresh``
-   0 and with ``--preset recall``; check the reports and that K1–K5 were
-   launched; re-score the same lifted predictions with the plain K5 (same
+   0, with ``--preset recall`` and with ``--int8`` (calibrated on each
+   category's first frame, as the CLI does); check the reports and that
+   K1–K7 were launched; re-score the same lifted predictions with the plain K5 (same
    IoUs, same report text); hold the card's float32 EPnP lift against the
    float64 host lift; time examples/s and its split.
 6. Serve the flagship configuration from converted snapshots at full
@@ -46,9 +47,21 @@ Phases, each fatal on failure:
    moving boxes (tracks kept, each result equal to ``infer_batch`` of its
    frame, frames/s, the assignment route); the ``Detector`` wrapper over
    4 frames (K1 and K3 against their plain versions).  Each of these runs
-   counts every kernel's launches (K5's too) and must give exactly the
+   counts every kernel's launches (K5–K7 too) and must give exactly the
    path's own: one K1 and K3 a batch or frame, one K2 and K4 a regress
-   pass, no K5.
+   pass, no K5, K6 or K7.
+7. Serve int8: K6 and K7 against their plain versions bit for bit on
+   every case of ``K6_CASES`` and ``K7_CASES`` (bf16 and f32, the stems'
+   k×k, padded depths, M = 17, 49 and 128·49), ``torch._int_mm`` against
+   the exact product; MNv3-large-21k and the el0 engine of phase 6's
+   snapshots calibrated by ``calibrate_engine`` on the 16 frames and
+   served int8 through ``infer_batch`` (one K6 and one K7 a quantized
+   conv, counted exactly), their rows equal to the same engine's through
+   the plain K6 and K7 (cuDNN's deterministic algorithms), their drift
+   from bf16, K6, ``_int_mm`` and K7 timed over one call's convs, launches
+   and device time per call and frames/s and latency at batch 16, bf16
+   and int8 in turns; el0 exported from its snapshot by
+   ``tools/export.py``, reloaded and held against the eager module.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -75,10 +88,16 @@ from tpudet3d_torch.tools.k3_bench import det_batch, k3_times
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, non-tensor float32, published
+INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores, published
 FRAME = (720, 1280, 3)
 EVAL_FRAME = (1280, 720, 3)    # portrait frames of the evaluation phase
 EVAL_EXAMPLES = 24             # per category
 EVAL_CLASSES = ('bike', 'book')
+# the evaluation phase's CLI settings: the defaults at det_tresh 0, the
+# recall preset, and int8 serving at det_tresh 0
+EVAL_SETTINGS = (('default', ['--det_tresh', '0']),
+                 ('recall', ['--preset', 'recall']),
+                 ('int8', ['--det_tresh', '0', '--int8']))
 K4_REFINE = (1280, 720, 10.0, 0.2)     # (w, h, margin_px, edge_grow)
 # float32 EPnP lift of exact box projections against the float64 lift: the
 # CPU parity tests find ~1e-4 (tests/test_torch_port_box3d.py)
@@ -863,6 +882,7 @@ def eval_path(dev, wrappers):
     from tpudet3d_torch.eval import protocol
     from tpudet3d_torch.ops import geometry
     from tpudet3d_torch.ops.box3d import iou_oriented_boxes_plain
+    from tpudet3d_torch.infer.quant import serve_int8
     from tpudet3d_torch.tools.objectron_eval import (engine_from_args,
                                                      evaluate_category,
                                                      parse_args)
@@ -887,10 +907,12 @@ def eval_path(dev, wrappers):
     data = {cls: eval_examples(EVAL_EXAMPLES, seed, geometry)
             for seed, cls in enumerate(EVAL_CLASSES, 5)}
     engines = []
-    for name, flags in (('default', ['--det_tresh', '0']),
-                        ('recall', ['--preset', 'recall'])):
+    for name, flags in EVAL_SETTINGS:
         args = parse_args(['--eval_data', '-', *flags])
         engine = engine_from_args(args)        # the card, full width
+        if args.int8:
+            # the CLI's calibration frames: each category's first frame
+            serve_int8(engine, [data[cls][0][0] for cls in EVAL_CLASSES])
         engine.infer_batch(np.stack([e[0] for e in
                                      data[EVAL_CLASSES[0]][:args.batch]]))
         engines.append((name, args, engine))
@@ -911,9 +933,9 @@ def eval_path(dev, wrappers):
             runs.append((name, cls, ev, timings))
     torch.cuda.synchronize()
     launches = [f.launches for f in wrappers]
-    print(f'evaluation path: 2 settings x {len(EVAL_CLASSES)} categories x '
-          f'{EVAL_EXAMPLES} examples of {EVAL_FRAME[0]}x{EVAL_FRAME[1]}, '
-          f'launches K1/K2/K3/K4/K5 = {launches}')
+    print(f'evaluation path: {len(EVAL_SETTINGS)} settings x '
+          f'{len(EVAL_CLASSES)} categories x {EVAL_EXAMPLES} examples of '
+          f'{EVAL_FRAME[0]}x{EVAL_FRAME[1]}, launches K1-K7 = {launches}')
     for f, n in zip(wrappers, launches):
         expect(n > 0, f'{f.__name__} was never launched on the evaluation '
                'path')
@@ -977,7 +999,7 @@ def eval_path(dev, wrappers):
     expect(lift['gt']['max'] <= LIFT_TOL, 'the lift of exact projections '
            f'is {lift["gt"]["max"]} from the float64 lift (tol {LIFT_TOL})')
     out.update(k5_err=iou_err, lift=lift)
-    for name in ('default', 'recall'):
+    for name, _ in EVAL_SETTINGS:
         sel = [(ev, t) for n, _, ev, t in runs if n == name]
         wall = sum(t['wall'] for _, t in sel)
         k5 = sum(ev.iou_seconds for ev, _ in sel)
@@ -1072,9 +1094,15 @@ def cudnn_deterministic():
 
 
 def same_results(a, b, what):
+    """Expect equal rows; returns the largest |a - b| over their values."""
+    err = 0.0
     for r, q in zip(a, b):
         for k in r:
             expect(np.array_equal(r[k], q[k]), f'{what}: {k} differs')
+            if np.size(r[k]):
+                err = max(err, float(np.abs(np.float64(r[k])
+                                             - np.float64(q[k])).max()))
+    return err
 
 
 def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
@@ -1089,13 +1117,13 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
                                       IOUTrackerConfig, TwoStageEngine,
                                       build_engine)
     from tpudet3d_torch.tools import demo
-    resize, crop, decode, epilogue, _ = wrappers
+    resize, crop, decode, epilogue = wrappers[:4]
     h, w = FRAME[:2]
     out = {'launches': {}}
 
     def counted(name, fn, expected):
         res, n = drive(wrappers, fn)
-        print(f'phase 6 {name}: launches K1/K2/K3/K4/K5 = {n}')
+        print(f'phase 6 {name}: launches K1-K7 = {n}')
         want = [expected.get(f, 0) for f in wrappers]
         expect(n == want, f'{name}: launches {n}, expected {want}')
         out['launches'][name] = n
@@ -1214,6 +1242,362 @@ def check_detector(detector, f, plain):
     return detector._decode(rows.cpu().numpy(), f.shape)
 
 
+# Phase 7: int8 serving.  K6's cases: (name, NCHW shape, kernel, stride,
+# pad): the stems of the detector (batch 16 at 300²) and of the regressor
+# (128 crops at 224²), 1×1 convs at M = 17, 49 and 128·49 rows, the first
+# two with a depth padded from 24 to 32, the third el0's widest (1152), a
+# 5×5 stride 2 at an odd size; each in bf16 and f32, channels-last, and
+# the last also in NCHW memory
+K6_CASES = (('stem300', (16, 3, 300, 300), 3, 2, 1),
+            ('stem224', (128, 3, 224, 224), 3, 2, 1),
+            ('m17', (1, 24, 1, 17), 1, 1, 0),
+            ('m49', (1, 24, 7, 7), 1, 1, 0),
+            ('m6272', (128, 1152, 7, 7), 1, 1, 0),
+            ('k5s2', (2, 40, 13, 11), 5, 2, 2))
+# K7's cases: (name, M, N, Np, bias): M = 17, 49 and 128·49 rows at the
+# regressor's widths; N = 20 of Np = 24 takes the element-wise path
+K7_CASES = (('m17', 17, 320, 320, False), ('m49', 49, 960, 960, True),
+            ('m6272', 6272, 1280, 1280, False),
+            ('m6272_bias', 6272, 320, 320, True),
+            ('n20', 49, 20, 24, True))
+
+
+def k6_input(case, dtype, dev, channels_last=True, seed=0):
+    """The input of a K6_CASES entry: normal values times 40 with every
+    7th an exact half (a rounding tie at ``s_x = 127``) and a few past
+    the clip; returns ``(x, kernel, stride, pad)``."""
+    _, shape, k, stride, pad = next(c for c in K6_CASES if c[0] == case)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) * 40.0
+    flat = x.view(-1)
+    flat[::7] = flat[::7].round() + 0.5
+    flat[:4] = torch.tensor([200.0, -200.0, 126.5, -127.5], device=dev)
+    x = x.to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x, k, stride, pad
+
+
+def k7_input(case, dev, seed=0):
+    """int32 sums, a per-channel scale and a bias (or None) of a K7_CASES
+    entry, the sums spanning up to the largest the regressor's widest conv
+    can reach (127²·1152)."""
+    _, m, n, n_pad, bias = next(c for c in K7_CASES if c[0] == case)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randint(-127 * 127 * 1152, 127 * 127 * 1152, (m, n_pad),
+                      generator=gen, device=dev, dtype=torch.int32)
+    y[0, :4] = torch.tensor([2 ** 24 + 1, 257, -(2 ** 24 + 3), 0],
+                            device=dev, dtype=torch.int32)
+    scale = torch.rand(n, generator=gen, device=dev) * 1e-4
+    b = torch.randn(n, generator=gen, device=dev) if bias else None
+    return y, scale, b
+
+
+def check_int8_kernels(dev, quant_ops):
+    """K6 and K7 against their plain versions, bit for bit, on every
+    K6_CASES and K7_CASES entry in bf16 and f32; torch._int_mm on the
+    int8 conv's operand layout against the exact product (float64 holds
+    every sum below 2^53).  Returns the case count and the largest
+    |kernel - plain| of K6 (in int8 steps) and of K7 (in its dtype)."""
+    qops = quant_ops
+    n_cases, k6_err, k7_err = 0, 0, 0.0
+    for case, *_ in K6_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for cl in (True, False) if case == 'k5s2' else (True,):
+                x, k, stride, pad = k6_input(case, dtype, dev, cl)
+                for s_x in (127.0, 3.7):
+                    out = qops.quantize_input(x, s_x, k, stride, pad)
+                    ref = qops.quantize_input_plain(x, s_x, k, stride, pad)
+                    k6_err = max(k6_err, int8_err(out, ref))
+                    expect(torch.equal(out, ref), f'K6 {case} {dtype} '
+                           f's_x={s_x} channels_last={cl} disagrees: '
+                           f'{int((out != ref).sum())} of {out.numel()}')
+                    n_cases += 1
+    for case, *_ in K7_CASES:
+        y, scale, bias = k7_input(case, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            out = qops.rescale(y, scale, bias, dtype)
+            ref = qops.rescale_plain(y, scale, bias, dtype)
+            k7_err = max(k7_err, max_err(out, ref))
+            expect(out.is_contiguous() and torch.equal(out, ref),
+                   f'K7 {case} {dtype} disagrees: '
+                   f'{int((out != ref).sum())} of {out.numel()}')
+            n_cases += 1
+    print(f'K6 and K7: {n_cases} cases, kernel == plain bit for bit')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # the last two: widths that cuBLASLt refuses at these rows (72 and 24,
+    # odd multiples of 8), padded as int8_weight pads them
+    padded = lambda n: -(-n // qops.N_ALIGN) * qops.N_ALIGN  # noqa: E731
+    for m, kp, n in ((17, 32, 320), (49, 1152, 320), (6272, 1152, 320),
+                     (6272, 160, 960), (1600, 32, 16), (50176, 48, 128),
+                     (200704, 32, padded(72)), (50176, 32, padded(24))):
+        a = torch.randint(-127, 128, (m, kp), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, kp), generator=gen, device=dev,
+                          dtype=torch.int8)
+        got = torch._int_mm(a, w.t())
+        exact = (a.double() @ w.double().t()).long()
+        expect(got.dtype == torch.int32 and torch.equal(got.long(), exact),
+               f'torch._int_mm [{m},{kp}]x[{kp},{n}] is not the exact product')
+    print('torch._int_mm: equal to the exact product at M = 17 to 200704, '
+          'K up to 1152')
+    # why the weight is padded: the same widths unpadded (not an error
+    # here; a torch or CUDA that takes them is reported)
+    refused = {}
+    for m, n in ((200704, 72), (50176, 24)):
+        a = torch.zeros((m, 32), device=dev, dtype=torch.int8)
+        w = torch.zeros((n, 32), device=dev, dtype=torch.int8)
+        try:
+            torch._int_mm(a, w.t())
+            torch.cuda.synchronize()
+            refused[f'M={m} N={n}'] = False
+        except RuntimeError as e:
+            refused[f'M={m} N={n}'] = str(e).splitlines()[0][:120]
+    print(f'torch._int_mm unpadded: {refused}')
+    return dict(cases=n_cases, k6_err=k6_err, k7_err=k7_err,
+                int_mm_unpadded_refused=refused)
+
+
+@contextlib.contextmanager
+def plain_quant(qops):
+    """K6 and K7 through their plain versions, also on the card."""
+    saved = qops.quantize_input, qops.rescale
+    qops.quantize_input, qops.rescale = (qops.quantize_input_plain,
+                                         qops.rescale_plain)
+    try:
+        yield
+    finally:
+        qops.quantize_input, qops.rescale = saved
+
+
+@contextlib.contextmanager
+def recording_int8_convs(quant):
+    """Every int8 conv's ``(x, layer, s_x)`` in the calls inside."""
+    calls, conv = [], quant.int8_conv
+
+    def record(x, layer, s_x):
+        calls.append((x, layer, s_x))
+        return conv(x, layer, s_x)
+
+    quant.int8_conv = record
+    try:
+        yield calls
+    finally:
+        quant.int8_conv = conv
+
+
+def int8_err(a, b):
+    """Largest |a - b| of two int8 tensors, in int8 steps."""
+    return int((a.int() - b.int()).abs().max())
+
+
+def int8_kernel_times(qops, calls):
+    """K6, torch._int_mm and K7 over the int8 convs of one serving call
+    (``calls`` from recording_int8_convs): each kernel's largest |kernel -
+    plain| at these shapes, device ms per call from the profiler,
+    back-to-back ms, the plain versions' ms, each kernel's bound (bytes:
+    every input read once, every output written once; K7 reads the N
+    columns of each row that it rescales, not the padded width) and, for
+    K7, the library call ``torch.mul(y[:, :N], scale)``.  No served conv
+    has a bias (``ConvBN``), so that product is K7's whole function there;
+    it is checked bit for bit against the plain version."""
+    k6_args, mm_args, k7_args, lib_args = [], [], [], []
+    k6_bytes = k7_bytes = k6_ops = k7_ops = mm_ops = mm_bytes = 0
+    k6_err, k7_err = 0, 0.0
+    for x, layer, s_x in calls:
+        expect(layer.bias is None, 'a served int8 conv has a bias')
+        args = (x, s_x, layer.kernel_size, layer.stride, layer.padding)
+        rows = qops.quantize_input(*args)
+        k6_err = max(k6_err, int8_err(rows, qops.quantize_input_plain(*args)))
+        w, scale = qops.int8_weight(layer, s_x)
+        y = torch._int_mm(rows, w.t())
+        k6_args.append(args)
+        mm_args.append((rows, w.t()))
+        k7_args.append((y, scale, None, x.dtype))
+        n = scale.numel()
+        lib_args.append((y[:, :n], scale.to(x.dtype)))
+        ref = qops.rescale_plain(*k7_args[-1])
+        k7_err = max(k7_err, max_err(qops.rescale(*k7_args[-1]), ref))
+        expect(torch.equal(torch.mul(*lib_args[-1]), ref),
+               'torch.mul(y, scale) differs from the plain K7')
+        k6_bytes += x.numel() * x.element_size() + rows.numel()
+        k6_ops += 3 * rows.numel()
+        k7_bytes += y.shape[0] * n * (4 + x.element_size()) + n * 4
+        k7_ops += 2 * y.shape[0] * n
+        mm_ops += 2 * rows.shape[0] * rows.shape[1] * w.shape[0]
+        mm_bytes += rows.numel() + w.numel() + y.numel() * 4
+    library = lambda: [torch.mul(*a) for a in lib_args]  # noqa: E731
+    out = {}
+    for name, fn, plain, lib, err, (n_bytes, n_ops) in (
+            ('K6', lambda: [qops.quantize_input(*a) for a in k6_args],
+             lambda: [qops.quantize_input_plain(*a) for a in k6_args],
+             None, k6_err, (k6_bytes, k6_ops)),
+            ('K7', lambda: [qops.rescale(*a) for a in k7_args],
+             lambda: [qops.rescale_plain(*a) for a in k7_args],
+             library, k7_err, (k7_bytes, k7_ops))):
+        out[name] = dict(
+            launches_per_call=len(calls), err=err, ms=time_ms(fn, 10),
+            device_ms=profile_call(fn, 10)[1], plain_ms=time_ms(plain, 3),
+            bound=bound_ms(n_bytes, n_ops), bytes=n_bytes,
+            library_ms=None if lib is None else time_ms(lib, 10),
+            library_device_ms=None if lib is None else profile_call(lib,
+                                                                    10)[1])
+    mm = lambda: [torch._int_mm(a, b) for a, b in mm_args]  # noqa: E731
+    out['int_mm'] = dict(device_ms=profile_call(mm, 10)[1],
+                         ms=time_ms(mm, 10), tera_ops=mm_ops / 1e12,
+                         bytes=mm_bytes,
+                         bound_ms=max(mm_ops / INT8_OPS,
+                                      mm_bytes / HBM_BYTES_PER_S) * 1e3)
+    return out
+
+
+def row_drift(got, ref):
+    """Box and keypoint drift of int8 rows against bf16 rows of the same
+    frames: each int8 row against the bf16 row of its frame whose box
+    overlaps it most (IoU > 0.5); keypoints in pixels of the box."""
+    box, kp, n, n_rows = [], [], 0, 0
+    for g, r in zip(got, ref):
+        n_rows += len(g['scores'])
+        if not len(g['scores']) or not len(r['scores']):
+            continue
+        lo = np.maximum(g['boxes'][:, None, :2], r['boxes'][None, :, :2])
+        hi = np.minimum(g['boxes'][:, None, 2:], r['boxes'][None, :, 2:])
+        inter = np.prod(np.clip(hi - lo, 0, None), -1)
+        area = lambda b: np.prod(b[:, 2:] - b[:, :2], -1)  # noqa: E731
+        iou = inter / (area(g['boxes'])[:, None] + area(r['boxes'])[None]
+                       - inter)
+        j, m = iou.argmax(1), iou.max(1) > 0.5
+        n += int(m.sum())
+        box.append(np.abs(g['boxes'][m] - r['boxes'][j[m]]).ravel())
+        side = (g['boxes'][m, 2:] - g['boxes'][m, :2])[:, None, :]
+        kp.append((np.abs(g['kp'][m] - r['kp'][j[m]]) * side).ravel())
+    box, kp = np.concatenate(box), np.concatenate(kp)
+    stat = lambda v: dict(mean=float(v.mean()), p95=float(  # noqa: E731
+        np.percentile(v, 95)), max=float(v.max())) if len(v) else None
+    return dict(rows=n_rows, matched=n, box_px=stat(box), kp_px=stat(kp))
+
+
+def int8_ab_times(engine, dev, scales, iters):
+    """Server frames/s at batch 16 and blocked single-frame p50 latency,
+    bf16 and int8 in turns (bf16, int8, int8, bf16); the device-resident
+    frames of serving_times."""
+    h, w = FRAME[:2]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randint(0, 256, (16, *FRAME), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    runs = {'bf16': [], 'int8': []}
+    for mode in ('bf16', 'int8', 'int8', 'bf16'):
+        engine.cfg.det_int8_scales, engine.cfg.reg_int8_scales = \
+            scales if mode == 'int8' else (None, None)
+        engine._pipeline_batch(frames, h, w)
+        torch.cuda.synchronize()
+        fps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                engine._pipeline_batch(frames, h, w)
+            torch.cuda.synchronize()
+            fps.append(16 * iters / (time.perf_counter() - t0))
+        lat = []
+        for _ in range(2 * iters):
+            t0 = time.perf_counter()
+            engine._pipeline(frames[0], h, w)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        runs[mode].append(dict(fps_b16=float(np.median(fps)),
+                               latency_ms_p50=float(np.median(lat))))
+    engine.cfg.det_int8_scales, engine.cfg.reg_int8_scales = scales
+    return runs
+
+
+def int8_path(dev, wrappers, frames_np, iters):
+    """Phase 7: int8 serving of MNv3-large-21k (the default build) and of
+    el0 from the phase-6 snapshots at batch 16 of 720p, each calibrated by
+    ``calibrate_engine`` on the phase's frames; the export of el0 from its
+    snapshot through tools/export.py.  Returns its numbers."""
+    import os
+    import tempfile
+    from tpudet3d_torch.infer import build_engine, quant
+    from tpudet3d_torch.infer.export import load_exported, make_export_fn
+    from tpudet3d_torch.ops import quant as qops
+    from tpudet3d_torch.tools import export as export_cli
+    h, w = FRAME[:2]
+    out = {'kernels': check_int8_kernels(dev, qops), 'launches': {}}
+    engines = {'mnv3': build_engine(det_conf=0.0, device=dev)}
+    with tempfile.TemporaryDirectory() as root:
+        paths = write_snapshots(root)[0]
+        engines['el0'] = build_engine(
+            EL0_CONFIG, det_checkpoint=paths['detector'],
+            reg_checkpoint=paths['regressor'], det_conf=0.0, device=dev)
+        # the el0 regressor exported from its snapshot, reloaded, against
+        # the served module in eager mode
+        dest = os.path.join(root, 'export')
+        export_cli.main(['--config', EL0_CONFIG, '--snapshot',
+                         paths['regressor'], '--model_export_path', dest,
+                         '--img_size', '224', '224', '--batch_size', '8'])
+        reloaded = load_exported(dest)
+        raw = torch.randint(0, 256, (8, 224, 224, 3), dtype=torch.uint8,
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(8))
+        eager = make_export_fn(engines['el0'].reg_model)
+        with torch.no_grad(), cudnn_deterministic():
+            pairs = list(zip(reloaded(raw), eager(raw)))
+        errs = [max_err(a, b) for a, b in pairs]
+        size = os.path.getsize(os.path.join(dest, 'model.pt2'))
+        print(f'el0 exported from its snapshot: {size} bytes; reloaded '
+              f'against eager on 8 crops, held bit for bit: kp {errs[0]:.3g},'
+              f' logits {errs[1]:.3g}')
+        expect(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+               f'the exported el0 disagrees with eager: {errs}')
+        out['export'] = dict(kp_err=errs[0], logits_err=errs[1])
+    for name, engine in engines.items():
+        bf16 = engine.infer_batch(frames_np)
+        scales = quant.serve_int8(engine, list(frames_np))
+        n_q = [len(quant.quantized_conv_paths(m)) for m in
+               (engine.det_model, engine.reg_model)]
+        expect(len(scales[1]) > 0, f'{name}: the regressor was not '
+               'calibrated (no detection)')
+        res, n = drive(wrappers, lambda: engine.infer_batch(frames_np))
+        print(f'phase 7 {name} int8 infer_batch(16): launches '
+              f'K1/K2/K3/K4/K5/K6/K7 = {n} ({n_q[0]} + {n_q[1]} '
+              'quantized convs)')
+        expect(n == [1, 1, 1, 1, 0, sum(n_q), sum(n_q)],
+               f'{name} int8: launches {n}')
+        out['launches'][name] = n
+        check_results(res, h, w)
+        expect(sum(len(r['scores']) for r in res) > 0, f'{name}: no row')
+        with cudnn_deterministic():
+            again = engine.infer_batch(frames_np)
+            with plain_quant(qops):
+                plain = engine.infer_batch(frames_np)
+        rows_err = same_results(again, plain,
+                                f'{name} int8 against the plain K6/K7')
+        drift = row_drift(res, bf16)
+        print(f'{name} int8 against bf16 on 16 frames: {drift}')
+        with recording_int8_convs(quant) as calls:
+            engine.infer_batch(frames_np)
+        times = int8_kernel_times(qops, calls)
+        frames = engine._upload(frames_np)
+        profile = {}
+        for mode in ('bf16', 'int8'):
+            engine.cfg.det_int8_scales, engine.cfg.reg_int8_scales = \
+                scales if mode == 'int8' else (None, None)
+            profile[mode] = dict(zip(('events_per_call', 'device_ms'),
+                                     profile_call(lambda: engine
+                                                  ._pipeline_batch(
+                                                      frames, h, w), 10)))
+        serving = int8_ab_times(engine, dev, scales, max(iters // 2, 1))
+        print(f'{name} serving batch 16 bf16 / int8: {serving}; per call '
+              f'{profile}; K6 {times["K6"]}; K7 {times["K7"]}; _int_mm '
+              f'{times["int_mm"]}')
+        out[name] = dict(scales=[len(s) for s in scales], drift=drift,
+                         times=times, profile=profile, serving=serving,
+                         quantized_convs=n_q, rows_err=rows_err)
+        del engine
+    engines.clear()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -1237,7 +1621,9 @@ def run(dev, out_path, iters=20):
     from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                     resize_bilinear, resize_bilinear_plain,
                                     resize_weights)
+    from tpudet3d_torch.ops import quant as qops
     iou = box3d.iou_oriented_boxes
+    int8_wrappers = (qops.quantize_input, qops.rescale)
     t0, phase_s = time.perf_counter(), {}
 
     def done(phase):
@@ -1303,13 +1689,14 @@ def run(dev, out_path, iters=20):
     done('4 serving times')
 
     # 5. the evaluation path at full width
-    evaluation = eval_path(dev, wrappers + (iou,))
+    evaluation = eval_path(dev, wrappers + (iou,) + int8_wrappers)
     done('5 evaluation path')
 
     # 6. the flagship EfficientNet-lite0 regressor and the cascade detector
     # from converted snapshots: serving, 288² crops, times, the demo loop
     # with the tracker, and the Detector wrapper
-    flagship = flagship_path(dev, wrappers + (iou,), frames_np, (
+    flagship = flagship_path(dev, wrappers + (iou,) + int8_wrappers,
+                             frames_np, (
         resize_bilinear_plain, crop_and_resize_plain,
         decode_detections_plain, crop_and_resize, head_epilogue,
         head_epilogue_plain), norm, max(iters // 2, 1))
@@ -1321,8 +1708,20 @@ def run(dev, out_path, iters=20):
           f'route {flagship["demo"]["assignment"]}')
     runs = flagship['launches']
     done('6 flagship path')
+
+    # 7. int8 serving (MNv3 and el0, K6 and K7) and the el0 export
+    int8 = int8_path(dev, wrappers + (iou,) + int8_wrappers, frames_np,
+                     iters)
+    done('7 int8 path')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
+
+    def int8_path_err(key):
+        """K6's or K7's largest |kernel - plain| in phase 7: its cases, the
+        served convs' shapes and the engine rows through it."""
+        return max([int8['kernels'][key.lower() + '_err']]
+                   + [int8[m]['times'][key]['err'] for m in ('mnv3', 'el0')]
+                   + [int8[m]['rows_err'] for m in ('mnv3', 'el0')])
 
     kernels = []
     for (name, src, replaces, m, err), n, n_eval, n_el0 in zip((
@@ -1338,8 +1737,15 @@ def run(dev, out_path, iters=20):
             ('K5 iou_oriented_boxes',
              'tpudet3d_torch/kernels/csrc/box3d_iou.cu',
              'tpudet3d/ops/box3d.py:161', k5,
-             max(k5['err'], evaluation['k5_err']))),
-            launches + [evaluation['launches'][4]],
+             max(k5['err'], evaluation['k5_err'])),
+            ('K6 quantize_input', 'tpudet3d_torch/kernels/csrc/quant.cu',
+             'tpudet3d/infer/quant.py:158', int8['mnv3']['times']['K6'],
+             int8_path_err('K6')),
+            ('K7 int8_rescale', 'tpudet3d_torch/kernels/csrc/quant.cu',
+             'tpudet3d/infer/quant.py:171', int8['mnv3']['times']['K7'],
+             int8_path_err('K7'))),
+            launches + [evaluation['launches'][4]]
+            + int8['launches']['mnv3'][5:],
             evaluation['launches'], runs['el0 infer_batch(16)']):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': src,
@@ -1350,6 +1756,8 @@ def run(dev, out_path, iters=20):
             'launches_el0': n_el0})
     for i, k in enumerate(kernels):
         k['launches_flagship'] = {run: n[i] for run, n in runs.items()}
+        k['launches_int8'] = {name: n[i] for name, n in
+                              int8['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
@@ -1372,6 +1780,11 @@ def run(dev, out_path, iters=20):
                       bound_ms_p8=k5['p8']['bound'][0],
                       max_abs_err_scipy=k5['host_err'],
                       floor_ms=k5['floor_ms'])
+    for k, key in zip(kernels[5:], ('K6', 'K7')):
+        t = int8['mnv3']['times'][key]
+        k.update(device_ms=t['device_ms'], bytes=t['bytes'],
+                 library_device_ms=t['library_device_ms'],
+                 el0=int8['el0']['times'][key])
     for k in kernels:
         lib = ('none' if k['library_ms'] is None
                else f"{k['library_ms']:.4f} ms")
@@ -1380,7 +1793,8 @@ def run(dev, out_path, iters=20):
               f"({k['bound_by']}), {k['launches']} launches on its main "
               f"path ({k['launches_eval']} on the evaluation path, "
               f"{k['launches_el0']} on el0 infer_batch(16), "
-              f"{k['launches_flagship']['demo loop']} on the demo loop), max "
+              f"{k['launches_flagship']['demo loop']} on the demo loop, "
+              f"{k['launches_int8']} int8 infer_batch(16)), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -1389,6 +1803,7 @@ def run(dev, out_path, iters=20):
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
                        'serving': times, 'max_det_128': wide,
                        'evaluation': evaluation, 'flagship': flagship,
+                       'int8': int8,
                        'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)

@@ -317,7 +317,13 @@ def test_demo_loop_matches_jax_loop(max_frames):
     assert any(o.label != 'ID -1' for objs in got for o in objs)
 
 
-def test_demo_draws_and_refuses_int8(weights):  # noqa: F811
+def test_demo_draws_and_refuses_int8(weights, tmp_path,  # noqa: F811
+                                     monkeypatch, capsys):
+    """The loop draws; ``--int8`` no longer refuses: ``main`` calibrates both
+    stages on the first frame of a video, serves the rest through the int8
+    path and draws them."""
+    import cv2 as cv
+    from tpudet3d_torch.infer import quant
     frames = moving_frames(3, (240, 320, 3))
     engine = _port_engine(weights)
     drawn = [f for f, _, _ in demo.run(
@@ -326,8 +332,30 @@ def test_demo_draws_and_refuses_int8(weights):  # noqa: F811
     assert all(d.shape == f.shape for d, f in zip(drawn, frames))
     assert any(not np.array_equal(d, f) for d, f in zip(drawn, frames))
     assert list(demo.run(iter([]), engine, IOUTracker())) == []
-    with pytest.raises(NotImplementedError, match='int8'):
-        demo.main(['--int8', '--device', 'cpu'])
+    video = str(tmp_path / 'clip.avi')
+    writer = cv.VideoWriter(video, cv.VideoWriter_fourcc(*'MJPG'), 10,
+                            (320, 240))
+    for f in moving_frames(4, (240, 320, 3)):
+        writer.write(f)
+    writer.release()
+    int8_engine, served = _port_engine(weights), []
+    conv = quant.int8_conv
+    monkeypatch.setattr(quant, 'int8_conv', lambda *a: served.append(1)
+                        or conv(*a))
+    monkeypatch.setattr(demo, 'build_engine', lambda *a, **kw: int8_engine)
+    shown = []
+    run = demo.run
+    monkeypatch.setattr(demo, 'run', lambda *a, **kw: (
+        shown.append(f.copy()) or (f, r, o) for f, r, o in run(*a, **kw)))
+    monkeypatch.chdir(tmp_path)
+    demo.main(['--video', video, '--int8', '--benchmark', '--resolution',
+               '320', '240', '--device', 'cpu'])
+    assert 'int8: calibrated 38+' in capsys.readouterr().out
+    assert int8_engine.cfg.det_int8_scales and int8_engine.cfg.reg_int8_scales
+    assert len(shown) == 3 and served            # the first frame calibrated
+    decoded = list(demo.capture_frames(cv.VideoCapture(video), (320, 240)))
+    assert len(decoded) == 4
+    assert any(not np.array_equal(d, f) for d, f in zip(shown, decoded[1:]))
     kp = np.random.RandomState(4).uniform(0, 1, (9, 2))
     img = frames[0]
     for kw in (dict(), dict(RGB=False, normalized=True, label='cup')):

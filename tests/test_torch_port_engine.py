@@ -222,9 +222,17 @@ def test_refine_and_tta_units_match_jax():
 
 
 def test_unported_options_raise(weights):
+    """``shard`` is not ported and raises; int8 scales are served (an empty
+    dict, as in JAX, changes nothing: tests/test_torch_port_quant.py holds
+    the int8 path itself)."""
     _, port_eng = _engines(weights, 'default')
     with pytest.raises(NotImplementedError):
         port_eng.shard(None)
+    frame = np.random.RandomState(10).randint(0, 256, (64, 96, 3)) \
+        .astype(np.uint8)
+    ref = port_eng(frame)
     port_eng.cfg.det_int8_scales = {}
-    with pytest.raises(NotImplementedError):
-        port_eng(np.zeros((64, 64, 3), np.uint8))
+    port_eng.cfg.reg_int8_scales = {}
+    out = port_eng(frame)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k])

@@ -11,9 +11,13 @@ frame cases of chip_smoke.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
 the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact, also at the crop counts and on the logits with NaNs and ties
 of chip_smoke.K4_CASES; K5 1e-5 (kernel and plain version compute the same
-float32 operations in the same order).
+float32 operations in the same order); K6 and K7 bit for bit on
+chip_smoke.K6_CASES and K7_CASES, torch._int_mm equal to the exact
+product, and the int8 conv through the kernels equal to it through the
+plain versions.
 
-The K1 shapes, the K2 and K3 cases and the K4 and K5 inputs come from
+The K1 shapes, the K2, K3, K6 and K7 cases and the K4 and K5 inputs come
+from
 chip_smoke.py, so these
 tests, the card smoke and the CPU parity tests (tests/test_torch_port_eval.py,
 tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
@@ -31,9 +35,11 @@ from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
                                 resize_bilinear, resize_bilinear_plain)
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
+from tpudet3d_torch.ops import quant as qops
 from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
-                        K4_CASES, K4_REFINE, compare_k4, k1_frames, k2_case,
-                        k3_case, k4_inputs, k5_exact_cases, k5_fuzz_pairs)
+                        K4_CASES, K4_REFINE, K6_CASES, K7_CASES, compare_k4,
+                        k1_frames, k2_case, k3_case, k4_inputs, k5_exact_cases,
+                        k5_fuzz_pairs, k6_input, k7_input, plain_quant)
 from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 
@@ -157,3 +163,61 @@ def test_k5_kernel_exact_cases(cuda, case):
     a = torch.tensor(b1, dtype=torch.float32, device=cuda)
     b = torch.tensor(b2, dtype=torch.float32, device=cuda)
     assert abs(float(iou_oriented_boxes(a, b)) - want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case', [c[0] for c in K6_CASES])
+def test_k6_kernel_matches_plain(cuda, case, dtype):
+    for channels_last in (True, False):
+        x, k, stride, pad = k6_input(case, dtype, cuda, channels_last)
+        for s_x in (127.0, 3.7):
+            out = qops.quantize_input(x, s_x, k, stride, pad)
+            assert torch.equal(out, qops.quantize_input_plain(x, s_x, k,
+                                                              stride, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case', [c[0] for c in K7_CASES])
+def test_k7_kernel_matches_plain(cuda, case, dtype):
+    y, scale, bias = k7_input(case, cuda)
+    out = qops.rescale(y, scale, bias, dtype)
+    assert out.is_contiguous() and out.dtype == dtype
+    assert torch.equal(out, qops.rescale_plain(y, scale, bias, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', [(17, 32, 320), (49, 1152, 320),
+                                   (6272, 160, 960), (200704, 32, 80)])
+def test_int_mm_is_exact(cuda, m, k, n):
+    """torch._int_mm on the int8 conv's operands ([M,Kp] rows, the [Np,Kp]
+    weight transposed) against float64, which holds every such sum."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    assert torch.equal(torch._int_mm(a, w.t()).long(),
+                       (a.double() @ w.double().t()).long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_int8_conv_kernels_match_plain(cuda, dtype):
+    """A stem 3×3 stride 2 and a 1×1 conv with a bias through K6, _int_mm
+    and K7 against the same conv through the plain K6 and K7; M ≤ 16
+    raises."""
+    gen = torch.Generator().manual_seed(3)
+    for conv, shape in ((torch.nn.Conv2d(3, 16, 3, 2, 1, bias=False),
+                         (4, 3, 65, 65)),
+                        (torch.nn.Conv2d(24, 40, 1), (2, 24, 9, 9))):
+        conv = conv.to(cuda)
+        x = (torch.randn(shape, generator=gen) * 3).to(cuda, dtype) \
+            .contiguous(memory_format=torch.channels_last)
+        out = qops.int8_conv(x, conv, 5.0)
+        with plain_quant(qops):
+            ref = qops.int8_conv(x, conv, 5.0)
+        assert out.dtype == dtype and torch.equal(out, ref)
+    with pytest.raises(ValueError, match='16'):
+        qops.int8_conv(torch.zeros((1, 24, 4, 4), device=cuda), conv, 1.0)

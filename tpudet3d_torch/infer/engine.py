@@ -12,9 +12,13 @@ All ``max_det`` rows are always processed (padded rows carry score 0), as
 the JAX program's fixed shapes do, and nothing on the path waits for the
 device until the caller reads the result.
 
-PyTorch runs eagerly, so the JAX engine's per-shape executable cache has no
-counterpart yet (CUDA-graph capture is a later slice).  int8 serving and
-``shard()`` are not ported (ROADMAP.md).
+With ``det_int8_scales`` / ``reg_int8_scales`` (``infer/quant.py``
+``calibrate_engine``) the detector's and the regressor's forwards run under
+``intercepting``: their calibrated dense ``ConvBN`` convs go through the int8
+path (K6, ``torch._int_mm``, K7), as the JAX program's do.  PyTorch runs
+eagerly, so the JAX engine's per-shape executable cache has no counterpart
+yet (CUDA-graph capture is a later slice).  ``shard()`` is not ported
+(ROADMAP.md).
 """
 
 from dataclasses import dataclass
@@ -28,6 +32,7 @@ from ..detect.anchors import INPUT_SIZE, generate_anchors
 from ..detect.nms import decode_detections
 from ..ops.image import crop_and_resize, resize_bilinear
 from .epilogue import head_epilogue, refine_boxes, tta_flip_average
+from .quant import intercepting
 
 __all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
            'tta_flip_average', 'upload', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
@@ -76,7 +81,8 @@ class EngineConfig:
     # fraction of the box side in the next pass
     refine_edge_grow: float = 0.2
     input_is_bgr: bool = True
-    # int8 PTQ scales: not ported yet, must stay None
+    # int8 PTQ: calibrated input scales of each stage's convs
+    # (infer/quant.py calibrate_engine); None or {} serves unquantized
     det_int8_scales: Optional[dict] = None
     reg_int8_scales: Optional[dict] = None
     # downscale frames on the host (cv2 INTER_AREA) before upload; boxes
@@ -140,12 +146,6 @@ class TwoStageEngine:
                     soft_nms_dup_iou=cfg.soft_nms_dup_iou,
                     box_vote_iou=cfg.box_vote_iou)
 
-    def _check_supported(self):
-        if self.cfg.det_int8_scales is not None \
-                or self.cfg.reg_int8_scales is not None:
-            raise NotImplementedError(
-                'int8 serving (infer/quant.py) is not ported yet')
-
     def _heads(self, frames, boxes):
         """Crops of boxes ``[N,M,4]`` through the regressor: the heads'
         pre-activations ``[B',9,18]`` and logits ``[B',C]``, B' = N·M (2·N·M
@@ -156,7 +156,8 @@ class TwoStageEngine:
                                 scale=REG_SCALE, offset=REG_OFFSET,
                                 mirror=cfg.tta_flip,
                                 dtype=self.reg_model.dtype)
-        return self.reg_model(crops, pre_activation=True)
+        with intercepting(self.reg_model, cfg.reg_int8_scales):
+            return self.reg_model(crops, pre_activation=True)
 
     @torch.no_grad()
     def _detect(self, frames, h, w, margin):
@@ -164,13 +165,13 @@ class TwoStageEngine:
         with ``dets [N,max_det,6]`` from K3 in detector pixels and ``boxes
         [N,max_det,4]`` scaled, expanded, margined and clipped to the
         frame."""
-        self._check_supported()
         cfg = self.cfg
         det_in = resize_bilinear(frames, (INPUT_SIZE, INPUT_SIZE),
                                  reverse_channels=cfg.input_is_bgr,
                                  scale=1.0 / 255.0,
                                  dtype=self.det_model.dtype)
-        logits, deltas = self.det_model(det_in)
+        with intercepting(self.det_model, cfg.det_int8_scales):
+            logits, deltas = self.det_model(det_in)
         dets = decode_detections(logits.contiguous(), deltas.contiguous(),
                                  self.anchors, **self.decode_kwargs())
         s = INPUT_SIZE

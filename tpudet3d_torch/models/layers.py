@@ -13,6 +13,7 @@ Flax path onto a ``state_dict`` key mechanically.
 """
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +59,20 @@ def linear(x, layer):
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+# ``conv_hook.fn(x, layer)``, installed in this thread by ``infer/quant.py``
+# while it calibrates or serves int8 (Flax's interceptors are per thread
+# too): the conv's output, or None to leave the call to ``conv``
+conv_hook = threading.local()
+
+
 def conv(x, layer):
-    """``nn.Conv2d`` computed in the dtype of ``x``."""
+    """``nn.Conv2d`` computed in the dtype of ``x``, unless a conv hook
+    (``infer/quant.py``) takes the call."""
+    hook = getattr(conv_hook, 'fn', None)
+    if hook is not None:
+        out = hook(x, layer)
+        if out is not None:
+            return out
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
                     layer.padding, layer.dilation, layer.groups)

@@ -3,6 +3,7 @@
 
     python -m tpudet3d_torch.tools.demo --video clip.mp4 [--benchmark]
         [--reg_config CONFIG] [--det_checkpoint SNAP] [--reg_checkpoint SNAP]
+        [--int8]
 
 A video file or a webcam in, tracked 3D boxes drawn out, an optional mp4
 writer.  Inference is pipelined in software: frame N is dispatched to the
@@ -10,10 +11,10 @@ card before the host waits for frame N-1's result, then tracks and draws
 it.  ``--benchmark`` runs headless (no window).  ``run`` takes any iterator
 of BGR frames, so a caller without cv2 drives the same loop over decoded
 frames; cv2 is imported only to read video, draw, show or write.  Without
-snapshots both stages have random weights.  Runs on the card unless
-``--device cpu``.
-
-Not ported: ``--int8`` (int8 serving) raises ``NotImplementedError``.
+snapshots both stages have random weights.  ``--int8`` calibrates both
+stages on the first captured frame, resized to ``--resolution`` (which is
+then not shown), and serves their dense convs through the int8 path
+(``infer/quant.py``).  Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -23,6 +24,7 @@ from dataclasses import asdict
 import numpy as np
 
 from ..infer.build import build_engine
+from ..infer.quant import serve_int8
 from ..infer.tracker import IOUTracker, IOUTrackerConfig
 from ..utils.drawing import draw_kp
 
@@ -128,7 +130,8 @@ def _parser():
                              '(cuts H2D bytes by factor^2; boxes are '
                              'rescaled to source pixels)')
     parser.add_argument('--int8', action='store_true',
-                        help='int8 serving: not ported, raises')
+                        help='serve both stages through the int8 PTQ path, '
+                             'calibrated on the first captured frame')
     parser.add_argument('--tta_flip', action='store_true',
                         help='horizontal-flip TTA for the regressor '
                              '(EngineConfig.tta_flip)')
@@ -140,8 +143,6 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError('--int8: int8 serving is not ported yet')
     import cv2 as cv
     if args.cam_id >= 0:
         cap = cv.VideoCapture(args.cam_id)
@@ -158,6 +159,13 @@ def main(argv=None):
                           args.reg_checkpoint, det_conf=args.det_tresh,
                           host_downscale=args.host_downscale,
                           tta_flip=args.tta_flip, device=args.device)
+    if args.int8:
+        ok, first = cap.read()
+        if not ok:
+            raise SystemExit('--int8: could not read a calibration frame')
+        ds, rs = serve_int8(engine, [cv.resize(first,
+                                               tuple(args.resolution))])
+        print(f'int8: calibrated {len(ds)}+{len(rs)} convs')
     tracker = IOUTracker(**asdict(IOUTrackerConfig()))
     writer = None
     if args.write_video:

@@ -2,7 +2,7 @@
 ``scripts/objectron_eval.py``):
 
     python -m tpudet3d_torch.tools.objectron_eval --eval_data RECORDS \\
-        [--classes bike book ...] [--preset recall] [--device cpu] \\
+        [--classes bike book ...] [--preset recall] [--int8] [--device cpu] \\
         [--reg_config configs/scene_regressor_el0_hpo.py] \\
         [--det_checkpoint output/<run>/snap_N] [--reg_checkpoint ...]
 
@@ -15,15 +15,16 @@ regressor config (MobileNetV3 or EfficientNet-lite); the checkpoints are
 converted snapshots (``scripts/snapshot_to_torch.py``), named by the file
 or by the orbax ``snap_N`` directory beside it, and without
 ``--reg_checkpoint`` the newest snapshot of the config's ``output_dir`` is
-served (``infer/build.py``).  Everything runs on the card unless
-``--device cpu``.  Decoding JPEG frames needs cv2, imported when
-the first record is decoded.
+served (``infer/build.py``).  ``--int8`` calibrates both stages on the
+first frame of the first shard of up to ``--int8_calib`` categories
+(``infer/quant.py`` ``calibrate_engine``) and serves their dense convs
+through the int8 path.  Everything runs on the card unless ``--device
+cpu``.  Decoding JPEG frames needs cv2, imported when the first record is
+decoded.
 
 Expected feature keys (Objectron eval shards): image/encoded (JPEG),
 point_2d, point_3d (flat float lists), instance_num, object/visibility,
 plane/center, plane/normal.
-
-Not ported: ``--int8`` (int8 serving) raises ``NotImplementedError``.
 """
 
 import argparse
@@ -38,10 +39,11 @@ from ..core import OBJECTRON_CLASSES, mkdir_if_missing
 from ..eval.protocol import (ObjectronProtocolEvaluator, parse_example,
                              read_tfrecord)
 from ..infer.build import build_engine
+from ..infer.quant import serve_int8
 from ..ops.geometry import lift_2d_batched
 
 __all__ = ['decode_example', 'engine_from_args', 'evaluate_category', 'main',
-           'parse_args']
+           'parse_args', 'calibration_frames']
 
 
 def decode_example(payload):
@@ -204,7 +206,8 @@ def _parser():
                              'the regressor (one doubled batch, predictions '
                              'averaged)')
     parser.add_argument('--int8', action='store_true',
-                        help='int8 serving: not ported, raises')
+                        help='serve both stages through the int8 PTQ path, '
+                             "calibrated on the eval shards' first frames")
     parser.add_argument('--int8_calib', type=int, default=9,
                         help='number of calibration frames for --int8')
     parser.add_argument('--preset', type=str, default='',
@@ -241,8 +244,6 @@ def parse_args(argv=None):
 def engine_from_args(args):
     """The serving engine the CLI's arguments ask for (``build_engine``:
     the default full-width build unless a config or checkpoint is given)."""
-    if args.int8:
-        raise NotImplementedError('--int8: int8 serving is not ported yet')
     return build_engine(args.reg_config, args.det_checkpoint,
                         args.reg_checkpoint, det_conf=args.det_tresh,
                         refine_passes=args.refine_passes,
@@ -256,21 +257,47 @@ def engine_from_args(args):
                         tta_flip=args.tta_flip, device=args.device)
 
 
+def calibration_frames(eval_data, classes, count):
+    """The int8 calibration frames of ``scripts/objectron_eval.py``: the
+    first frame with a GT instance in the first shard of each category,
+    for up to ``count`` categories."""
+    frames = []
+    for category in classes:
+        for shard in sorted(glob.glob(osp.join(eval_data, category,
+                                               '*')))[:1]:
+            for payload in read_tfrecord(shard):
+                image, gt2d = decode_example(payload)[:2]
+                if image is not None and len(gt2d):
+                    frames.append(image)
+                    break
+        if len(frames) >= count:
+            break
+    return frames
+
+
 def main(argv=None):
     args = parse_args(argv)
     engine = engine_from_args(args)
     gt_box_regressor = None
     if args.gt_boxes:
-        if args.tta_flip:
+        if args.int8 or args.tta_flip:
             raise ValueError('--gt_boxes bypasses the engine (plain '
-                             'Regressor wrapper): --tta_flip would be '
-                             'ignored')
+                             'Regressor wrapper): --int8 and --tta_flip '
+                             'would be ignored')
         from ..infer.wrappers import Regressor
         gt_box_regressor = Regressor(engine.reg_model,
                                      crop_size=engine.cfg.crop_size,
                                      device=engine.device)
 
     classes = (OBJECTRON_CLASSES if args.classes == ['all'] else args.classes)
+    if args.int8:
+        calib = calibration_frames(args.eval_data, classes, args.int8_calib)
+        if not calib:
+            raise ValueError('--int8: no calibration frames found in the '
+                             'eval shards')
+        det_scales, reg_scales = serve_int8(engine, calib)
+        print(f'int8: calibrated {len(det_scales)}+{len(reg_scales)} convs '
+              f'on {len(calib)} frames')
     mkdir_if_missing(args.report_dir)
 
     for category in classes:
