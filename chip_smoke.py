@@ -52,16 +52,19 @@ Phases, each fatal on failure:
    pass, no K5, K6 or K7.
 7. Serve int8: K6 and K7 against their plain versions bit for bit on
    every case of ``K6_CASES`` and ``K7_CASES`` (bf16 and f32, the stems'
-   k×k, padded depths, M = 17, 49 and 128·49), ``torch._int_mm`` against
-   the exact product; MNv3-large-21k and the el0 engine of phase 6's
-   snapshots calibrated by ``calibrate_engine`` on the 16 frames and
-   served int8 through ``infer_batch`` (one K6 and one K7 a quantized
-   conv, counted exactly), their rows equal to the same engine's through
-   the plain K6 and K7 (cuDNN's deterministic algorithms), their drift
-   from bf16, K6, ``_int_mm`` and K7 timed over one call's convs, launches
-   and device time per call and frames/s and latency at batch 16, bf16
-   and int8 in turns; el0 exported from its snapshot by
-   ``tools/export.py``, reloaded and held against the eager module.
+   k×k, padded depths, M = 17, 49 and 128·49; K6 in channels-last and
+   NCHW memory, each on the route the case names, all three routes
+   taken), ``torch._int_mm`` against the exact product; MNv3-large-21k
+   and the el0 engine of phase 6's snapshots calibrated by
+   ``calibrate_engine`` on the 16 frames and served int8 through
+   ``infer_batch`` (one K6 and one K7 a quantized conv, counted exactly),
+   their rows equal to the same engine's through the plain K6 and K7
+   (cuDNN's deterministic algorithms), their drift from bf16, K6,
+   ``_int_mm`` and K7 timed over one call's convs (K6's route of every
+   conv, none ``strided``, and its time split by route), launches and
+   device time per call and frames/s and latency at batch 16, bf16 and
+   int8 in turns; el0 exported from its snapshot by ``tools/export.py``,
+   reloaded and held against the eager module.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1243,17 +1246,29 @@ def check_detector(detector, f, plain):
 
 
 # Phase 7: int8 serving.  K6's cases: (name, NCHW shape, kernel, stride,
-# pad): the stems of the detector (batch 16 at 300²) and of the regressor
-# (128 crops at 224²), 1×1 convs at M = 17, 49 and 128·49 rows, the first
-# two with a depth padded from 24 to 32, the third el0's widest (1152), a
-# 5×5 stride 2 at an odd size; each in bf16 and f32, channels-last, and
-# the last also in NCHW memory
-K6_CASES = (('stem300', (16, 3, 300, 300), 3, 2, 1),
-            ('stem224', (128, 3, 224, 224), 3, 2, 1),
-            ('m17', (1, 24, 1, 17), 1, 1, 0),
-            ('m49', (1, 24, 7, 7), 1, 1, 0),
-            ('m6272', (128, 1152, 7, 7), 1, 1, 0),
-            ('k5s2', (2, 40, 13, 11), 5, 2, 2))
+# pad, element offset of the input in its buffer, K6's route in bf16 and
+# in f32 for channels-last memory; NCHW memory takes ``strided``): the
+# stems of the detector (batch 16 at 300²) and of the regressor (128 crops
+# at 224²), 1×1 convs at M = 17, 49 and 128·49 rows, the first two with a
+# depth padded from 24 to 32, the third el0's widest (1152), a served
+# padded 1×1 (72 → 80 at 56², 128 crops), a 1×1 of depth 20 (not whole
+# 16-byte bf16 vectors, whole f32 ones), one of odd depth, one at an odd
+# element offset (an unaligned pointer), a 5×5 stride 2 at an odd size,
+# and a 3×3 whose last band, 1 output row of 2, stages the zero row below
+# the frame
+K6_CASES = (('stem300', (16, 3, 300, 300), 3, 2, 1, 0, ('staged', 'staged')),
+            ('stem224', (128, 3, 224, 224), 3, 2, 1, 0,
+             ('staged', 'staged')),
+            ('m17', (1, 24, 1, 17), 1, 1, 0, 0, ('rows', 'rows')),
+            ('m49', (1, 24, 7, 7), 1, 1, 0, 0, ('rows', 'rows')),
+            ('m6272', (128, 1152, 7, 7), 1, 1, 0, 0, ('rows', 'rows')),
+            ('pad72', (128, 72, 56, 56), 1, 1, 0, 0, ('rows', 'rows')),
+            ('c20', (2, 20, 9, 9), 1, 1, 0, 0, ('strided', 'rows')),
+            ('c13', (2, 13, 9, 9), 1, 1, 0, 0, ('strided', 'strided')),
+            ('odd', (1, 24, 7, 7), 1, 1, 0, 1, ('strided', 'strided')),
+            ('k5s2', (2, 40, 13, 11), 5, 2, 2, 0, ('staged', 'staged')),
+            ('k3edge', (128, 16, 21, 21), 3, 1, 1, 0,
+             ('staged', 'staged')))
 # K7's cases: (name, M, N, Np, bias): M = 17, 49 and 128·49 rows at the
 # regressor's widths; N = 20 of Np = 24 takes the element-wise path
 K7_CASES = (('m17', 17, 320, 320, False), ('m49', 49, 960, 960, True),
@@ -1265,8 +1280,10 @@ K7_CASES = (('m17', 17, 320, 320, False), ('m49', 49, 960, 960, True),
 def k6_input(case, dtype, dev, channels_last=True, seed=0):
     """The input of a K6_CASES entry: normal values times 40 with every
     7th an exact half (a rounding tie at ``s_x = 127``) and a few past
-    the clip; returns ``(x, kernel, stride, pad)``."""
-    _, shape, k, stride, pad = next(c for c in K6_CASES if c[0] == case)
+    the clip, at the case's element offset in its buffer; returns ``(x,
+    kernel, stride, pad)``."""
+    _, shape, k, stride, pad, offset, _ = next(c for c in K6_CASES
+                                               if c[0] == case)
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(shape, generator=gen, device=dev) * 40.0
     flat = x.view(-1)
@@ -1275,7 +1292,25 @@ def k6_input(case, dtype, dev, channels_last=True, seed=0):
     x = x.to(dtype)
     if channels_last:
         x = x.contiguous(memory_format=torch.channels_last)
+    if offset:
+        buf = torch.zeros(x.numel() + offset, dtype=dtype, device=dev)
+        view = buf[offset:].as_strided(x.shape, x.stride())
+        view.copy_(x)
+        x = view
     return x, k, stride, pad
+
+
+def k6_route(case, dtype, channels_last=True):
+    """The route K6 must take on a K6_CASES entry."""
+    routes = next(c for c in K6_CASES if c[0] == case)[-1]
+    return routes[dtype == torch.float32] if channels_last else 'strided'
+
+
+def k6_plan(qops, x, kernel, stride, pad):
+    """K6's plan for ``x`` on its card (the C entry refuses another)."""
+    from tpudet3d_torch.ops.image import _sm_count
+    return qops.quantize_plan(tuple(x.shape), x.stride(), x.dtype, kernel,
+                              stride, pad, x.data_ptr(), _sm_count(x.device))
 
 
 def k7_input(case, dev, seed=0):
@@ -1300,19 +1335,25 @@ def check_int8_kernels(dev, quant_ops):
     every sum below 2^53).  Returns the case count and the largest
     |kernel - plain| of K6 (in int8 steps) and of K7 (in its dtype)."""
     qops = quant_ops
-    n_cases, k6_err, k7_err = 0, 0, 0.0
+    n_cases, k6_err, k7_err, routes = 0, 0, 0.0, set()
     for case, *_ in K6_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            for cl in (True, False) if case == 'k5s2' else (True,):
+            for cl in (True, False):
                 x, k, stride, pad = k6_input(case, dtype, dev, cl)
+                route = k6_plan(qops, x, k, stride, pad).route
+                expect(route == k6_route(case, dtype, cl),
+                       f'K6 {case} {dtype} channels_last={cl} takes {route}')
+                routes.add(route)
                 for s_x in (127.0, 3.7):
                     out = qops.quantize_input(x, s_x, k, stride, pad)
                     ref = qops.quantize_input_plain(x, s_x, k, stride, pad)
                     k6_err = max(k6_err, int8_err(out, ref))
                     expect(torch.equal(out, ref), f'K6 {case} {dtype} '
-                           f's_x={s_x} channels_last={cl} disagrees: '
-                           f'{int((out != ref).sum())} of {out.numel()}')
+                           f's_x={s_x} channels_last={cl} ({route}) '
+                           f'disagrees: {int((out != ref).sum())} of '
+                           f'{out.numel()}')
                     n_cases += 1
+    expect(routes == {'rows', 'staged', 'strided'}, f'K6 routes {routes}')
     for case, *_ in K7_CASES:
         y, scale, bias = k7_input(case, dev)
         for dtype in (torch.bfloat16, torch.float32):
@@ -1323,7 +1364,8 @@ def check_int8_kernels(dev, quant_ops):
                    f'K7 {case} {dtype} disagrees: '
                    f'{int((out != ref).sum())} of {out.numel()}')
             n_cases += 1
-    print(f'K6 and K7: {n_cases} cases, kernel == plain bit for bit')
+    print(f'K6 and K7: {n_cases} cases, kernel == plain bit for bit (K6 on '
+          'the rows, staged and strided routes)')
     gen = torch.Generator(device=dev).manual_seed(5)
     # the last two: widths that cuBLASLt refuses at these rows (72 and 24,
     # odd multiples of 8), padded as int8_weight pads them
@@ -1400,14 +1442,26 @@ def int8_kernel_times(qops, calls):
     columns of each row that it rescales, not the padded width) and, for
     K7, the library call ``torch.mul(y[:, :N], scale)``.  No served conv
     has a bias (``ConvBN``), so that product is K7's whole function there;
-    it is checked bit for bit against the plain version."""
+    it is checked bit for bit against the plain version.  K6's route of
+    every conv, none ``strided``, and K6 on the device split by route,
+    each with its bytes and bound."""
     k6_args, mm_args, k7_args, lib_args = [], [], [], []
     k6_bytes = k7_bytes = k6_ops = k7_ops = mm_ops = mm_bytes = 0
     k6_err, k7_err = 0, 0.0
+    by_route, conv_routes = {}, []
     for x, layer, s_x in calls:
         expect(layer.bias is None, 'a served int8 conv has a bias')
         args = (x, s_x, layer.kernel_size, layer.stride, layer.padding)
+        route = k6_plan(qops, x, *args[2:]).route
+        expect(route != 'strided', f'a served conv of input '
+               f'{tuple(x.shape)} {x.stride()} takes the strided route')
+        conv_routes.append(f'{"x".join(map(str, x.shape))} '
+                           f'k{layer.kernel_size[0]} {route}')
         rows = qops.quantize_input(*args)
+        group = by_route.setdefault(route, dict(args=[], bytes=0, ops=0))
+        group['args'].append(args)
+        group['bytes'] += x.numel() * x.element_size() + rows.numel()
+        group['ops'] += 3 * rows.numel()
         k6_err = max(k6_err, int8_err(rows, qops.quantize_input_plain(*args)))
         w, scale = qops.int8_weight(layer, s_x)
         y = torch._int_mm(rows, w.t())
@@ -1442,6 +1496,13 @@ def int8_kernel_times(qops, calls):
             library_ms=None if lib is None else time_ms(lib, 10),
             library_device_ms=None if lib is None else profile_call(lib,
                                                                     10)[1])
+    out['K6']['conv_routes'] = conv_routes
+    out['K6']['routes'] = {
+        route: dict(launches=len(g['args']), bytes=g['bytes'],
+                    bound=bound_ms(g['bytes'], g['ops']),
+                    device_ms=profile_call(lambda g=g: [
+                        qops.quantize_input(*a) for a in g['args']], 10)[1])
+        for route, g in by_route.items()}
     mm = lambda: [torch._int_mm(a, b) for a, b in mm_args]  # noqa: E731
     out['int_mm'] = dict(device_ms=profile_call(mm, 10)[1],
                          ms=time_ms(mm, 10), tera_ops=mm_ops / 1e12,
@@ -1587,8 +1648,9 @@ def int8_path(dev, wrappers, frames_np, iters):
                                                   ._pipeline_batch(
                                                       frames, h, w), 10)))
         serving = int8_ab_times(engine, dev, scales, max(iters // 2, 1))
+        k6 = {k: v for k, v in times['K6'].items() if k != 'conv_routes'}
         print(f'{name} serving batch 16 bf16 / int8: {serving}; per call '
-              f'{profile}; K6 {times["K6"]}; K7 {times["K7"]}; _int_mm '
+              f'{profile}; K6 {k6}; K7 {times["K7"]}; _int_mm '
               f'{times["int_mm"]}')
         out[name] = dict(scales=[len(s) for s in scales], drift=drift,
                          times=times, profile=profile, serving=serving,
@@ -1728,7 +1790,7 @@ def run(dev, out_path, iters=20):
             ('K1 preprocess_resize', 'tpudet3d_torch/kernels/csrc/resize.cu',
              'tpudet3d/ops/image.py:19', k1, max(k1['err'], e1)),
             ('K2 crop_resize_normalize', 'tpudet3d_torch/kernels/csrc/crop.cu',
-             'tpudet3d/ops/image.py:86', k2, max(k2['err'], e2)),
+             'tpudet3d/ops/image.py:87', k2, max(k2['err'], e2)),
             ('K3 decode_nms', 'tpudet3d_torch/kernels/csrc/decode_nms.cu',
              'tpudet3d/detect/nms.py:86', k3, max(k3['err'], e3)),
             ('K4 head_epilogue',
@@ -1785,6 +1847,7 @@ def run(dev, out_path, iters=20):
         k.update(device_ms=t['device_ms'], bytes=t['bytes'],
                  library_device_ms=t['library_device_ms'],
                  el0=int8['el0']['times'][key])
+    kernels[5].update(routes=int8['mnv3']['times']['K6']['routes'])
     for k in kernels:
         lib = ('none' if k['library_ms'] is None
                else f"{k['library_ms']:.4f} ms")

@@ -12,9 +12,9 @@ the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact, also at the crop counts and on the logits with NaNs and ties
 of chip_smoke.K4_CASES; K5 1e-5 (kernel and plain version compute the same
 float32 operations in the same order); K6 and K7 bit for bit on
-chip_smoke.K6_CASES and K7_CASES, torch._int_mm equal to the exact
-product, and the int8 conv through the kernels equal to it through the
-plain versions.
+chip_smoke.K6_CASES (each on its route) and K7_CASES, torch._int_mm equal
+to the exact product, and the int8 conv through the kernels equal to it
+through the plain versions.
 
 The K1 shapes, the K2, K3, K6 and K7 cases and the K4 and K5 inputs come
 from
@@ -39,7 +39,8 @@ from tpudet3d_torch.ops import quant as qops
 from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
                         K4_CASES, K4_REFINE, K6_CASES, K7_CASES, compare_k4,
                         k1_frames, k2_case, k3_case, k4_inputs, k5_exact_cases,
-                        k5_fuzz_pairs, k6_input, k7_input, plain_quant)
+                        k5_fuzz_pairs, k6_input, k6_plan, k6_route,
+                        k7_input, plain_quant)
 from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 
@@ -171,6 +172,8 @@ def test_k5_kernel_exact_cases(cuda, case):
 def test_k6_kernel_matches_plain(cuda, case, dtype):
     for channels_last in (True, False):
         x, k, stride, pad = k6_input(case, dtype, cuda, channels_last)
+        assert k6_plan(qops, x, k, stride, pad).route == \
+            k6_route(case, dtype, channels_last)
         for s_x in (127.0, 3.7):
             out = qops.quantize_input(x, s_x, k, stride, pad)
             assert torch.equal(out, qops.quantize_input_plain(x, s_x, k,

@@ -47,7 +47,7 @@ SIGNATURES = {
     'tpd_head_epilogue': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F,
                           _F, _F, _F, _F, _F, _I, _P),
     'tpd_box3d_iou': (_P, _P, _P, _I, _I, _P),
-    'tpd_quantize_input': (_P, _P) + (_I,) * 18 + (_F, _I, _P),
+    'tpd_quantize_input': (_P, _P) + (_I,) * 18 + (_F,) + (_I,) * 6 + (_P,),
     'tpd_int8_rescale': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

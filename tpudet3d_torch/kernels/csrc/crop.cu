@@ -4,7 +4,7 @@
 // horizontally mirrored copy of every crop is written in the same launch
 // (the TTA batch: all originals, then all mirrors).
 //
-// Replaces: tpudet3d/ops/image.py:86-139 crop_and_resize (two dense
+// Replaces: tpudet3d/ops/image.py:87-139 crop_and_resize (two dense
 //   interpolation matmuls per crop, a TPU choice) with the semantics of its
 //   gather form crop_and_resize_gather (:59-75): cv2 pixel-centre sampling
 //   src = (dst + 0.5) * (box / out) - 0.5 + x0, box side floored at 1 px,

@@ -9,7 +9,11 @@ It replaces the intercepted dense conv of ``tpudet3d/infer/quant.py``
    -127, 127)`` in float32, rounded half to even, laid out as the rows of
    the product: ``[N·Ho·Wo, Kp]`` int8 with K in the weight's ``[kh, kw,
    Cin]`` order (im2col for a k×k conv), padded with zeros to a multiple
-   of 16 (``kernels/csrc/quant.cu``);
+   of 16 (``kernels/csrc/quant.cu``).  :func:`quantize_plan` picks one of
+   three routes per call: ``rows`` (a 1×1 conv on aligned channels-last
+   rows, read as 16-byte vectors), ``staged`` (a k×k conv on channels-last
+   input, a band of input rows staged in shared memory and quantized once)
+   or ``strided`` (anything else, read through the strides);
 2. the int8 × int8 → int32 product (``:167-170``, a library conv in XLA):
    ``torch._int_mm`` against the weight quantized per output channel and
    cached as ``[Np, Kp]`` int8 (:func:`int8_weight`);
@@ -23,16 +27,22 @@ tensor it launches the kernel or raises.  ``wrapper.launches`` counts the
 kernel launches.
 """
 
+import functools
 import weakref
+from collections import namedtuple
 
 import numpy as np
 import torch
 
 from ..kernels.build import check, library, stream_args
+from .image import SMEM_LIMIT, _sm_count
 
 __all__ = ['quantize_input', 'quantize_input_plain', 'rescale',
            'rescale_plain', 'int8_weight', 'int8_conv', 'conv_geometry',
-           'K_ALIGN', 'N_ALIGN']
+           'quantize_plan', 'quantize_footprint', 'quantize_bands',
+           'QuantPlan', 'K_ALIGN', 'N_ALIGN', 'K6_THREADS',
+           'K6_ROWS_CTAS_PER_SM', 'K6_STAGED_CTAS_PER_SM', 'K6_STAGE_BYTES',
+           'H100_SMS']
 
 K_ALIGN = 16     # the product's depth is padded to whole 16-byte rows
 # torch._int_mm takes widths that are multiples of 8, but cuBLASLt on the
@@ -42,9 +52,124 @@ K_ALIGN = 16     # the product's depth is padded to whole 16-byte rows
 N_ALIGN = 16
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
+# K6's launch geometry, mirrored by kernels/csrc/quant.cu make_layout
+K6_THREADS = 256           # threads of a CTA on every route
+K6_ROWS_CTAS_PER_SM = 4    # the rows grid: at most this many CTAs a SM
+K6_STAGED_CTAS_PER_SM = 6  # the staged grid likewise
+K6_BANDS = (16, 8, 4, 2, 1)  # the staged route's output rows per band
+K6_BANDS_PER_SM = 8        # the staged route's bands a SM at the least
+K6_STAGE_BYTES = 36864     # shared bytes a staged CTA takes by preference
+H100_SMS = 132
+_ROUTES = ('rows', 'staged', 'strided')
+
+QuantPlan = namedtuple('QuantPlan', 'route ctas band smem_bytes')
+StagedFootprint = namedtuple('StagedFootprint',
+                             'band rows tile_width raw_bytes smem_bytes')
+
 
 def _round_up(v, m):
     return (v + m - 1) // m * m
+
+
+def _channels_last(shape, strides):
+    """Whether element ``(n, c, y, x)`` lies at ``((n·H + y)·W + x)·C + c``
+    (a dimension of size 1 may have any stride)."""
+    n, c, h, w = shape
+    return all(size == 1 or st == want for size, st, want in zip(
+        shape, strides, (h * w * c, 1, w * c, c)))
+
+
+def quantize_footprint(shape, esize, kernel_size, stride, pad, band):
+    """The staged route's shared memory for bands of ``band`` output rows
+    of an NCHW input of ``shape`` with ``esize``-byte elements
+    (``quant.cu``'s ``make_layout``): two raw stages (the band being
+    quantized and the next one in flight), each of a band's input rows,
+    ``(band − 1) · sh + kh``, as raw bytes (those inside the frame,
+    contiguous in channels-last memory, copied from the 16-byte chunk that
+    holds the first: at most one chunk more than their length rounded up
+    to 16), then an int8 tile of every row with ``pw`` zero columns each
+    side, a pixel every C rounded up to 4 bytes."""
+    n, c, h, w = shape
+    kh, _ = _pair(kernel_size)
+    sh, _ = _pair(stride)
+    _, pw = _pair(pad)
+    rows = (band - 1) * sh + kh
+    raw = _round_up(min(rows, h) * w * c * esize, 16) + 16
+    tile_width = (w + 2 * pw) * _round_up(c, 4)
+    return StagedFootprint(band, rows, tile_width, raw,
+                           2 * raw + rows * tile_width)
+
+
+def quantize_plan(shape, strides, dtype, kernel_size=1, stride=1, pad=0,
+                  data_ptr=0, sms=H100_SMS):
+    """K6's route and launch geometry for an NCHW input of ``shape``,
+    element ``strides`` and ``dtype`` at address ``data_ptr``, on a card
+    of ``sms`` SMs: a :class:`QuantPlan` (route, CTAs, output rows per
+    band, dynamic shared bytes).
+
+    * ``rows``: a 1×1, stride 1, pad 0 conv on channels-last input whose
+      rows are whole 16-byte vectors (C a multiple of 8 in bf16, of 4 in
+      f32) at a 16-byte aligned address; a grid of at most
+      :data:`K6_ROWS_CTAS_PER_SM` CTAs a SM strides over the 16-byte
+      output chunks.
+    * ``staged``: another conv on channels-last input whose rows' 16-byte
+      chunks (Kp/16) fit one CTA's threads; at most
+      :data:`K6_STAGED_CTAS_PER_SM` CTAs a SM stride over the bands of
+      output rows of every image, the tallest band of :data:`K6_BANDS`
+      within :data:`K6_STAGE_BYTES` of shared memory that gives each SM
+      :data:`K6_BANDS_PER_SM` bands, else bands of one row (within
+      :data:`SMEM_LIMIT`).
+    * ``strided``: anything else (NCHW or other strides, odd C, unaligned
+      rows, a staged CTA that does not fit)."""
+    return _plan(tuple(shape), tuple(strides), dtype, _pair(kernel_size),
+                 _pair(stride), _pair(pad), data_ptr % 16, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(shape, strides, dtype, kernel_size, stride, pad, misalign, sms):
+    n, c, h, w = shape
+    m, _, kp, ho, wo = conv_geometry(shape, kernel_size, stride, pad)
+    esize = dtype.itemsize
+    chunks = m * kp // 16
+    strided = QuantPlan('strided', -(-chunks // K6_THREADS), 0, 0)
+    if not _channels_last(shape, strides) or m * kp >= 2 ** 31:
+        return strided
+    if (kernel_size, stride, pad) == ((1, 1), (1, 1), (0, 0)):
+        if (c * esize) % 16 or misalign:
+            return strided
+        return QuantPlan('rows', min(-(-chunks // K6_THREADS),
+                                     sms * K6_ROWS_CTAS_PER_SM), 0, 0)
+    if kp // 16 > K6_THREADS:
+        return strided
+    fps = [quantize_footprint(shape, esize, kernel_size, stride, pad, b)
+           for b in K6_BANDS]
+    fp = next((fp for fp in fps if fp.smem_bytes <= K6_STAGE_BYTES
+               and n * -(-ho // fp.band) >= K6_BANDS_PER_SM * sms), fps[-1])
+    if fp.smem_bytes > SMEM_LIMIT:
+        return strided
+    return QuantPlan('staged', min(n * -(-ho // fp.band),
+                                   sms * K6_STAGED_CTAS_PER_SM), fp.band,
+                     fp.smem_bytes)
+
+
+def quantize_bands(shape, kernel_size, stride, pad, band):
+    """The staged route's bands of one image, in order: ``(first output
+    row, output rows, first staged input row (may be < 0), first and one
+    past the last staged row inside the frame)``; the staged rows outside
+    the frame are the tile's zero rows.  Band ``b`` of the launch is band
+    ``b % len(bands)`` of image ``b // len(bands)``."""
+    _, _, h, _ = shape
+    _, _, _, ho, _ = conv_geometry(shape, kernel_size, stride, pad)
+    kh, _ = _pair(kernel_size)
+    sh, _ = _pair(stride)
+    ph, _ = _pair(pad)
+    out = []
+    for oy0 in range(0, ho, band):
+        rows = min(band, ho - oy0)
+        first = oy0 * sh - ph
+        last = first + (rows - 1) * sh + kh
+        out.append((oy0, rows, first, max(first, 0), min(last, h)))
+    return out
 
 
 def _inv_scale(s_x):
@@ -90,8 +215,8 @@ def quantize_input_plain(x, s_x, kernel_size=1, stride=1, pad=0):
 
 def quantize_input(x, s_x, kernel_size=1, stride=1, pad=0):
     """K6: see :func:`quantize_input_plain`.  On the card ``x`` may have any
-    strides (the kernel reads through them; the serving path's are
-    channels-last)."""
+    strides; :func:`quantize_plan` picks the route (the serving path's
+    channels-last inputs take ``rows`` or ``staged``)."""
     if x.device.type == 'cpu':
         return quantize_input_plain(x, s_x, kernel_size, stride, pad)
     if x.device.type != 'cuda':
@@ -108,11 +233,15 @@ def quantize_input(x, s_x, kernel_size=1, stride=1, pad=0):
     sh, sw = _pair(stride)
     ph, pw = _pair(pad)
     out = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+    sms = _sm_count(x.device)
+    plan = quantize_plan(tuple(x.shape), x.stride(), x.dtype, kernel_size,
+                         stride, pad, x.data_ptr(), sms)
     sn, sc, sy, sx = x.stride()
     err = library().tpd_quantize_input(
         x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), n, c,
         h, w, sn, sc, sy, sx, kh, kw, sh, sw, ph, pw, ho, wo, kp,
-        _inv_scale(s_x), *stream_args(x))
+        _inv_scale(s_x), _ROUTES.index(plan.route), plan.ctas, plan.band,
+        plan.smem_bytes, sms, *stream_args(x))
     check(err, 'quantize_input')
     quantize_input.launches += 1
     return out
