@@ -65,6 +65,22 @@ Phases, each fatal on failure:
    device time per call and frames/s and latency at batch 16, bf16 and
    int8 in turns; el0 exported from its snapshot by ``tools/export.py``,
    reloaded and held against the eager module.
+8. Train the regressor at full width from seeded random weights
+   (``tpudet3d_torch.train``): the card's float32 step against the CPU's
+   first (MNv3-large-21k, batch 8 at 224², 2 steps, the same weights,
+   batch and dropout masks, ALWA firing; the loss, every gradient, the
+   parameters within Adam's sign rule, the running statistics and the
+   ALWA state, TF32 off, cuDNN's deterministic algorithms); then
+   ``configs/scene_regressor.py`` (MNv3-large-21k) and
+   ``configs/scene_regressor_el0_ema.py`` (el0 with its EMA), bf16 with
+   float32 parameters, AdamW, batch 128 of 224² seeded noise images with
+   projected box keypoints, 30 steps with no host synchronisation inside
+   them (the loss must fall, every metric be finite, the EMA move and lag
+   the parameters, ``step`` reach 30), then the eval step with the 3D IoU
+   (exactly one K5 launch, none without the IoU; the same sums through
+   the plain K5, the IoU within 1e-5 a sample); step ms (median of 20
+   after 5 warm-up steps), images/s, peak memory, and device busy time,
+   idle share and kernel groups over 5 steps under ``torch.profiler``.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -583,6 +599,27 @@ def rotation(angles):
     return (np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
             @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
             @ np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]]))
+
+
+def projected_box_keypoints(n, seed=0):
+    """[n,9,2] float32 keypoints in [0,1] of random oriented boxes 1.5–3 m
+    in front of the default camera, projected as portrait frames are (the
+    regressor's training targets; the metrics lift them back).  A box
+    whose projection leaves [0,1] is drawn again."""
+    from tpudet3d_torch.ops import geometry
+    rng = np.random.RandomState(seed)
+    cam = geometry.convert_camera_matrix_2_ndc(
+        geometry.get_default_camera_matrix())
+    out = []
+    while len(out) < n:
+        box = box_kps(np.r_[rng.uniform(-0.4, 0.4, 2), rng.uniform(-3, -1.5)],
+                      rng.uniform(0.1, 0.5, 3),
+                      rotation(rng.uniform(-np.pi, np.pi, 3)))
+        uv = geometry.project_3d_points(box, cam)
+        xy = np.stack([(uv[:, 1] + 1) / 2, (uv[:, 0] + 1) / 2], -1)
+        if xy.min() >= 0.0 and xy.max() <= 1.0:
+            out.append(xy)
+    return np.stack(out).astype(np.float32)
 
 
 def k5_fuzz_pairs(n, seed=0):
@@ -1660,6 +1697,374 @@ def int8_path(dev, wrappers, frames_np, iters):
     return out
 
 
+# phase 8: regressor training at full width
+TRAIN_CONFIGS = (('mnv3', 'configs/scene_regressor.py'),
+                 ('el0', 'configs/scene_regressor_el0_ema.py'))
+TRAIN_BATCH = 128
+TRAIN_STEPS = 30
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 5, 20, 5
+# the card's f32 step against the CPU's: MNv3-large-21k, batch 8, 2 steps.
+# cuDNN's and oneDNN's f32 convolutions and batch norms reduce in other
+# orders, and a train-mode batch norm at batch 8 amplifies it toward the
+# stem: the loss and metrics within 1e-4 relative; the gradients within
+# 1e-3 of their norm over the whole model, and each tensor within 1e-2 of
+# its largest plus 1e-4 of the model's largest (a gradient that is 0 in
+# exact arithmetic is rounding noise on either device); running variances
+# and the ALWA state within 1e-4 relative, running means within 1e-4 of
+# their channel's running std; the parameters by Adam's sign rule
+# (tests/test_torch_port_train.py).  A float64 CPU step beside them says
+# how far each float32 step is from exact.
+CARD_CPU_BATCH = 8
+CARD_CPU_TOL = dict(metrics=1e-4, grad_norm=1e-3, grad=1e-2, grad_floor=1e-4,
+                    stats=1e-4)
+
+
+def train_batch(cfg, n, dev, seed):
+    """n normalised NHWC float32 images of noise, the keypoints of boxes
+    projected as portrait frames are, and categories, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    h, w = cfg.data.resize
+    imgs = rng.standard_normal((n, h, w, 3)).astype(np.float32)
+    kp = projected_box_keypoints(n, seed)
+    cats = rng.randint(0, 9, n)
+    return (torch.from_numpy(imgs).to(dev), torch.from_numpy(kp).to(dev),
+            torch.from_numpy(cats).long().to(dev))
+
+
+def train_parts(cfg, dev, seed=0):
+    from tpudet3d_torch.train import (create_train_state, make_eval_step,
+                                      make_train_step)
+    state = create_train_state(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(seed))
+    step = make_train_step(state.model, state.loss_manager, state.optimizer,
+                           ema_decay=state.ema_decay)
+    return state, step, make_eval_step(state.model)
+
+
+def rel_err(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def grad_norm_err(a, b):
+    """||a - b|| / ||b|` over every parameter's gradient."""
+    num = sum(float(((x.grad.detach().cpu().double()
+                      - y.grad.detach().cpu().double()) ** 2).sum())
+              for x, y in zip(a.parameters(), b.parameters()))
+    den = sum(float((y.grad.detach().cpu().double() ** 2).sum())
+              for y in b.parameters())
+    return (num / den) ** 0.5
+
+
+def card_against_cpu(dev, config):
+    """Two f32 train steps of MNv3-large-21k on the card and on the CPU from
+    the same weights, batch and dropout masks (one CPU generator seed for
+    both), ALWA on with C = 1 (it fires on the second step; ver_2, since
+    ver_1 at C = 1 takes the sqrt of a zero variance), and a float64 CPU
+    step beside them.  Before the second step the card and the float64
+    model take the CPU's parameters (they differ only where Adam's sign
+    rule moved rounding noise apart).  Returns the largest errors seen."""
+    from tpudet3d_torch.core.config import read_py_config
+    cfg = read_py_config(config)
+    cfg.model.bf16 = False
+    cfg.loss.coeffs = ([1., .1], [1.])
+    cfg.loss.alwa = dict(use=True, lam_cls=1., lam_reg=1., C=1,
+                         compute_std=False)
+    cpu = train_parts(cfg, 'cpu')
+    card = train_parts(cfg, dev)
+    f64 = train_parts(cfg, 'cpu')
+    f64[0].model.double()
+    f64[0].model.dtype = torch.float64
+    imgs, kp, cats = train_batch(cfg, CARD_CPU_BATCH, 'cpu', seed=5)
+    lr = float(cfg.optim.lr)
+    errs = dict(metrics=0.0, grad_norm=0.0, grad=0.0, grad_norm_cpu_f64=[],
+                grad_norm_card_f64=[], param=0.0, param_bound_share=0.0,
+                stats=0.0, alwa=0.0)
+    moved = {}
+    with cudnn_deterministic():
+        for i in range(2):
+            (s_cpu, m_cpu) = cpu[1](cpu[0], imgs, kp, cats,
+                                    torch.Generator().manual_seed(10 + i))
+            (s_dev, m_dev) = card[1](card[0], imgs.to(dev), kp.to(dev),
+                                     cats.to(dev),
+                                     torch.Generator().manual_seed(10 + i))
+            (s_64, m_64) = f64[1](f64[0], imgs, kp, cats,
+                                  torch.Generator().manual_seed(10 + i))
+            e = rel_err(m_dev, m_cpu)
+            expect(e <= CARD_CPU_TOL['metrics'],
+                   f'card vs CPU step {i}: metrics {e}')
+            errs['metrics'] = max(errs['metrics'], e)
+            norm = grad_norm_err(s_dev.model, s_cpu.model)
+            errs['grad_norm_cpu_f64'].append(
+                grad_norm_err(s_cpu.model, s_64.model))
+            errs['grad_norm_card_f64'].append(
+                grad_norm_err(s_dev.model, s_64.model))
+            errs['grad_norm'] = max(errs['grad_norm'], norm)
+            p_cpu = dict(s_cpu.model.named_parameters())
+            g_max = max(p.grad.abs().max().item() for p in p_cpu.values())
+            worst = []
+            for name, p in s_dev.model.named_parameters():
+                g, r = p.grad.detach().cpu(), p_cpu[name].grad
+                err = (g - r).abs()
+                tol = (CARD_CPU_TOL['grad'] * r.abs().max().item()
+                       + CARD_CPU_TOL['grad_floor'] * g_max)
+                worst.append((err.max().item() / tol, name,
+                              err.max().item(), r.abs().max().item()))
+                errs['grad'] = max(errs['grad'], err.max().item()
+                                   / max(r.abs().max().item(), 1e-30))
+                rel = (err + CARD_CPU_TOL['grad_floor'] * g_max) / (
+                    torch.maximum(g.abs(), r.abs()) + 1e-8)
+                moved[name] = torch.clamp(moved.get(name, 0.0) + 3 * rel,
+                                          max=2.0 * (i + 1))
+                d = (p.detach().cpu() - p_cpu[name].detach()).abs()
+                bound = 1e-6 + lr * moved[name]
+                expect(bool((d <= bound).all()),
+                       f'card vs CPU step {i}: {name} beyond the Adam bound')
+                errs['param'] = max(errs['param'], d.max().item())
+                errs['param_bound_share'] = max(
+                    errs['param_bound_share'], (d / bound).max().item())
+            worst.sort(reverse=True)
+            print(f'card vs CPU step {i}: loss {float(m_cpu[0]):.6f} (CPU) '
+                  f'{float(m_dev[0]):.6f} (card) {float(m_64[0]):.6f} '
+                  f'(CPU f64); gradients, ||card - CPU|| / ||CPU|| '
+                  f'{norm:.3g}, ||CPU - f64|| / ||f64|| '
+                  f'{errs["grad_norm_cpu_f64"][-1]:.3g}, ||card - f64|| / '
+                  f'||f64|| {errs["grad_norm_card_f64"][-1]:.3g}; largest '
+                  f'gradient {g_max:.3g}; nearest the per-tensor bound '
+                  f'(share, name, |error|, largest |gradient|): {worst[:3]}')
+            expect(norm <= CARD_CPU_TOL['grad_norm'],
+                   f'card vs CPU step {i}: gradient norm error {norm}')
+            expect(worst[0][0] <= 1.0,
+                   f'card vs CPU step {i}: gradients beyond the bound')
+            sd_cpu = s_cpu.model.state_dict()
+            for name, t in s_dev.model.state_dict().items():
+                if 'running' in name:
+                    # a mean in units of its channel's spread: behind an
+                    # identity batch norm and a conv it is 0 up to rounding
+                    ref = sd_cpu[name]
+                    scale = (sd_cpu[name.replace('_mean', '_var')].sqrt()
+                             if name.endswith('running_mean') else ref)
+                    e = ((t.cpu() - ref).abs().max()
+                         / scale.abs().max()).item()
+                    expect(e <= CARD_CPU_TOL['stats'],
+                           f'card vs CPU step {i}: {name} {e}')
+                    errs['stats'] = max(errs['stats'], e)
+            for f in ('lam_cls', 'lam_reg', 'sum_cls', 'sumsq_cls',
+                      'sum_reg', 'sumsq_reg', 'count'):
+                e = rel_err(getattr(s_dev.alwa, f), getattr(s_cpu.alwa, f))
+                expect(e <= CARD_CPU_TOL['stats'],
+                       f'card vs CPU step {i}: ALWA {f} {e}')
+                errs['alwa'] = max(errs['alwa'], e)
+            expect(int(s_dev.step) == int(s_cpu.step) == i + 1,
+                   'card vs CPU: step count')
+            with torch.no_grad():
+                for (name, p), q in zip(s_dev.model.named_parameters(),
+                                        s_64.model.parameters()):
+                    p.copy_(p_cpu[name])
+                    q.copy_(p_cpu[name])
+    expect(float(s_dev.alwa.lam_cls) != 1.0, 'card vs CPU: ALWA never fired')
+    print(f'card vs CPU, MNv3-large-21k f32 at batch {CARD_CPU_BATCH}, 2 '
+          f'steps: metrics {errs["metrics"]:.3g}, gradients '
+          f'{errs["grad_norm"]:.3g} of their norm, {errs["grad"]:.3g} of '
+          f'their tensor, parameters {errs["param"]:.3g} '
+          f'({errs["param_bound_share"]:.3g} of the Adam bound), running '
+          f'statistics {errs["stats"]:.3g}, ALWA {errs["alwa"]:.3g} '
+          f'(tolerances {CARD_CPU_TOL})')
+    return errs
+
+
+def same_sums(a, b, rtol=1e-6):
+    """Per-class float32 sums equal but for their order of addition."""
+    return bool(((a - b).abs() <= rtol * b.abs()).all())
+
+
+def eval_against_plain(dev, parts, batch, wrappers):
+    """The eval step over the trained batch with ``compute_iou`` on (one K5
+    launch, counted) and off (none), and on again through the plain K5:
+    accuracy and counts equal, ADD and SADD equal but for the order of
+    the card's atomic adds (1e-6), the IoU sums within 1e-5 a sample
+    (phase 2's K5 bound)."""
+    from tpudet3d_torch.eval import metrics
+    from tpudet3d_torch.ops import box3d
+    from tpudet3d_torch.train import eval_params
+    state, _, eval_step = parts
+    params = eval_params(state)
+    with cudnn_deterministic():
+        (sums, _), n_iou = drive(wrappers, lambda: eval_step(
+            params, *batch, compute_iou=True))
+        (no_iou, _), n_none = drive(wrappers, lambda: eval_step(
+            params, *batch, compute_iou=False))
+        kernel = metrics.iou_oriented_boxes
+        metrics.iou_oriented_boxes = box3d.iou_oriented_boxes_plain
+        try:
+            plain, _ = eval_step(params, *batch, compute_iou=True)
+        finally:
+            metrics.iou_oriented_boxes = kernel
+    expect(n_iou == [0, 0, 0, 0, 1, 0, 0],
+           f'eval step with IoU: launches {n_iou}, want one K5')
+    expect(n_none == [0] * 7, f'eval step without IoU: launches {n_none}')
+    # the per-class sums are atomic adds on the card: their order, and so
+    # a float sum's last bits, vary between calls
+    for i in (3, 4):
+        expect(torch.equal(sums[i], plain[i]) and
+               torch.equal(sums[i], no_iou[i]), f'eval sums {i} differ')
+    for i in (0, 1):
+        expect(same_sums(sums[i], plain[i]) and same_sums(sums[i], no_iou[i]),
+               f'eval sums {i} differ')
+    counts = sums[4].cpu()
+    iou_err = (sums[2] - plain[2]).abs().cpu()
+    expect(bool((iou_err <= 1e-5 * counts
+                 + 1e-6 * plain[2].abs().cpu()).all()),
+           f'eval IoU sums against the plain K5: {iou_err.tolist()}')
+    expect(int(counts.sum()) == batch[0].shape[0], 'eval counts')
+    expect(bool(torch.isfinite(sums[2]).all()) and
+           float(sums[2].sum()) / float(counts.sum()) <= 1.0, 'eval IoU')
+    return dict(sums=sums, iou_err=iou_err.max().item(),
+                mean_iou=float(sums[2].sum() / counts.sum()),
+                mean_add=float(sums[0].sum() / counts.sum()),
+                launches_iou=n_iou, launches_no_iou=n_none)
+
+
+def train_times(parts, batch, gen):
+    """Median step ms over TRAIN_TIMED steps after TRAIN_WARMUP (CUDA events
+    between steps, no host read inside), images/s, peak memory, and over
+    TRAIN_PROFILED steps under ``torch.profiler`` the device busy time
+    (the sum of kernel times; one stream), the idle share of that window
+    (1 - busy / its wall time per step) and the kernel groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudet3d_torch.tools.profile_serving import group_of
+    state, step, _ = parts
+    for _ in range(TRAIN_WARMUP):
+        state, _m = step(state, *batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_TIMED + 1)]
+    events[0].record()
+    for i in range(TRAIN_TIMED):
+        state, _m = step(state, *batch, gen)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    median = ms[len(ms) // 2] if len(ms) % 2 else \
+        (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            state, _m = step(state, *batch, gen)
+        torch.cuda.synchronize()
+        profiled = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(t for t, _ in kernels.values()) / TRAIN_PROFILED
+    groups = {}
+    for name, (t, n) in kernels.items():
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += t / TRAIN_PROFILED
+        g[1] += n / TRAIN_PROFILED
+    expect(busy > 0, 'the profiler saw no device time in the train steps')
+    return dict(step_ms=median, step_ms_min=ms[0], step_ms_max=ms[-1],
+                images_per_s=TRAIN_BATCH / median * 1e3,
+                peak_memory_gib=peak, device_busy_ms=busy,
+                profiled_step_ms=profiled,
+                device_idle_share=max(0.0, 1.0 - busy / profiled),
+                launches_per_step=sum(n for _, n in kernels.values())
+                / TRAIN_PROFILED,
+                groups_ms={k: v[0] for k, v in sorted(
+                    groups.items(), key=lambda kv: -kv[1][0])},
+                group_launches={k: v[1] for k, v in groups.items()})
+
+
+def training_path(dev, wrappers, gpu):
+    """Phase 8: regressor training at full width; returns its numbers."""
+    import warnings
+
+    from tpudet3d_torch.core.config import read_py_config
+    from tpudet3d_torch.train import eval_params
+    out = {'launches': {}}
+    out['card_vs_cpu'] = card_against_cpu(dev, TRAIN_CONFIGS[0][1])
+    for name, config in TRAIN_CONFIGS:
+        cfg = read_py_config(config)
+        expect(int(cfg.data.train_batch_size) == TRAIN_BATCH,
+               f'{config}: batch')
+        parts = train_parts(cfg, dev)
+        state, step, eval_step = parts
+        batch = train_batch(cfg, TRAIN_BATCH, dev, seed=3)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        ema0 = (None if state.ema_params is None else
+                {k: v.clone() for k, v in state.ema_params.items()})
+
+        def thirty_steps():
+            metrics = []
+            t0 = time.perf_counter()
+            # any synchronizing call inside a step warns
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    for _ in range(TRAIN_STEPS):
+                        _s, m = step(state, *batch, gen)
+                        metrics.append(m)
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+            syncs = [str(w.message) for w in caught
+                     if 'called a synchronizing' in str(w.message)]
+            with cudnn_deterministic():
+                sums, _ = eval_step(eval_params(state), *batch)
+            return (torch.stack(metrics).cpu(), syncs, sums,
+                    time.perf_counter() - t0)
+
+        (metrics, syncs, sums, secs), n = drive(wrappers, thirty_steps)
+        out['launches'][f'{name} {TRAIN_STEPS} steps + eval'] = n
+        ev = eval_against_plain(dev, parts, batch, wrappers)
+        expect(all(same_sums(a, b, 1e-5) for a, b in zip(sums, ev['sums'])),
+               f'{name}: the eval step is not repeatable')
+        expect(not syncs, f'{name}: host syncs inside the steps: {syncs[:3]}')
+        expect(n == [0, 0, 0, 0, 1, 0, 0],
+               f'{name}: launches {n}, want K5 once (the eval step)')
+        expect(bool(torch.isfinite(metrics).all()), f'{name}: metrics')
+        first, last5 = float(metrics[0, 0]), float(metrics[-5:, 0].mean())
+        expect(last5 < first, f'{name}: the loss did not fall: {first} → '
+               f'{last5}')
+        expect(int(state.step) == TRAIN_STEPS, f'{name}: step count')
+        ev['sums'] = [x.tolist() for x in ev['sums']]
+        r = dict(loss_first=first, loss_last5=last5,
+                 metrics_last=metrics[-1].tolist(), eval=ev,
+                 steps_s=secs, ema=state.ema_params is not None)
+        if state.ema_params is not None:
+            params = dict(state.model.named_parameters())
+            moved = any(not torch.equal(state.ema_params[k], ema0[k])
+                        for k in ema0)
+            lags = any(not torch.equal(state.ema_params[k], params[k])
+                       for k in ema0)
+            expect(moved and lags, f'{name}: the EMA did not move or does '
+                   f'not lag the parameters')
+        r.update(train_times(parts, batch, gen))
+        out[name] = r
+        top = ', '.join(f'{g} {t:.2f}' for g, t in
+                        list(r['groups_ms'].items())[:5])
+        print(f'training {name} ({config}) on {gpu}: loss {first:.4f} → '
+              f'{last5:.4f} (mean of the last 5 of {TRAIN_STEPS} steps); '
+              f'step {r["step_ms"]:.2f} ms (median of {TRAIN_TIMED}), '
+              f'{r["images_per_s"]:.1f} images/s at batch {TRAIN_BATCH}, '
+              f'peak {r["peak_memory_gib"]:.2f} GiB, device busy '
+              f'{r["device_busy_ms"]:.2f} ms a step of '
+              f'{r["profiled_step_ms"]:.2f} profiled, idle share '
+              f'{r["device_idle_share"]:.3f}, '
+              f'{r["launches_per_step"]:.0f} launches a step; by group ms: '
+              f'{top}; eval IoU {ev["mean_iou"]:.4f}, max |K5 - plain| '
+              f'{ev["iou_err"]:.3g}')
+        del parts, state, step, eval_step
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -1775,6 +2180,11 @@ def run(dev, out_path, iters=20):
     int8 = int8_path(dev, wrappers + (iou,) + int8_wrappers, frames_np,
                      iters)
     done('7 int8 path')
+
+    # 8. regressor training (MNv3-large-21k and el0 with its EMA) at full
+    # width, the card's f32 step against the CPU's, the eval step with K5
+    training = training_path(dev, wrappers + (iou,) + int8_wrappers, gpu)
+    done('8 training path')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -1818,6 +2228,8 @@ def run(dev, out_path, iters=20):
             'launches_el0': n_el0})
     for i, k in enumerate(kernels):
         k['launches_flagship'] = {run: n[i] for run, n in runs.items()}
+        k['launches_train'] = {run: n[i] for run, n in
+                               training['launches'].items()}
         k['launches_int8'] = {name: n[i] for name, n in
                               int8['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
@@ -1857,7 +2269,8 @@ def run(dev, out_path, iters=20):
               f"path ({k['launches_eval']} on the evaluation path, "
               f"{k['launches_el0']} on el0 infer_batch(16), "
               f"{k['launches_flagship']['demo loop']} on the demo loop, "
-              f"{k['launches_int8']} int8 infer_batch(16)), max "
+              f"{k['launches_int8']} int8 infer_batch(16), "
+              f"{k['launches_train']} on the training path), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -1866,7 +2279,7 @@ def run(dev, out_path, iters=20):
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
                        'serving': times, 'max_det_128': wide,
                        'evaluation': evaluation, 'flagship': flagship,
-                       'int8': int8,
+                       'int8': int8, 'training': training,
                        'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)

@@ -35,11 +35,24 @@ def test_import_loads_no_jax():
 
 
 def test_no_silent_cpu_default(monkeypatch):
-    from tpudet3d_torch.core import resolve_device
+    from tpudet3d_torch.core import read_py_config, resolve_device
     from tpudet3d_torch.infer import build_engine
+    from tpudet3d_torch.losses import LossManager, build_loss
+    from tpudet3d_torch.models import build_model
+    from tpudet3d_torch.train import build_optimizer, create_train_state
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         build_engine()
+    # the train state, from a config or from the parts a train step takes
+    cfg = read_py_config(os.path.join(REPO, 'configs', 'scene_regressor.py'))
+    cfg.model.name = 'mobilenetv3_small'
+    with pytest.raises(RuntimeError, match='CUDA'):
+        create_train_state(cfg)
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        create_train_state(model, build_optimizer(cfg, model.parameters()),
+                           LossManager(build_loss(cfg), cfg.loss.coeffs,
+                                       cfg.loss.alwa))
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device()
     assert resolve_device('cpu') == torch.device('cpu')

@@ -76,13 +76,13 @@ class EfficientNetLite(nn.Module):
         for i, b in enumerate(blocks):
             self.add_module(f'blocks_{i}', b)
 
-    def features(self, x):
+    def features(self, x, train=False):
         for i in range(self.n_blocks):
-            x = getattr(self, f'blocks_{i}')(x)
+            x = getattr(self, f'blocks_{i}')(x, train)
         return x
 
-    def head(self, pooled):
+    def head(self, pooled, train=False):
         return pooled        # the conv head already ran before the pool
 
-    def forward(self, x, pooling_mode='avg'):
-        return global_pool(self.features(x), pooling_mode)
+    def forward(self, x, pooling_mode='avg', train=False):
+        return global_pool(self.features(x, train), pooling_mode)

@@ -7,6 +7,11 @@ bfloat16 compute of a Flax module built with ``dtype=bf16`` (parameters are
 cast at the point of use, batch norm accumulates in float32 and rounds its
 output once).
 
+Training mode is an explicit ``train`` argument, threaded from the
+backbone's ``features``/``head`` down to ``batch_norm`` as Flax threads it;
+the ``nn.Module.training`` flag is never read, so a module that was not
+put in ``eval()`` still serves with its running statistics.
+
 Submodules are named like the Flax tree (``ConvBN_0.Conv_0``,
 ``SqueezeExcite_0.Dense_1``, ``BatchNorm_0``), so ``utils/convert.py`` maps a
 Flax path onto a ``state_dict`` key mechanically.
@@ -78,10 +83,28 @@ def conv(x, layer):
                     layer.padding, layer.dilation, layer.groups)
 
 
-def batch_norm(x, bn):
-    """Inference batch norm: float32 statistics, output in the dtype of x."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+def batch_norm(x, bn, train=False):
+    """Batch norm with float32 statistics and the output in the dtype of
+    ``x``, as Flax's ``nn.BatchNorm``.
+
+    ``train=False`` normalises with the running statistics.  ``train=True``
+    normalises with the batch's mean and biased variance over every axis
+    but the channels (axis 1) and moves the running statistics towards
+    them, ``ra = (1 - m)·ra + m·batch`` with ``m = bn.momentum`` (0.1, Flax's
+    momentum 0.9), the variance biased there too.  ``F.batch_norm`` would
+    move ``running_var`` with the unbiased variance, so the buffers are
+    updated here from ``torch.var_mean``."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    out = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    with torch.no_grad():
+        dims = [d for d in range(x.dim()) if d != 1]
+        var, mean = torch.var_mean(x.float(), dims, unbiased=False)
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    return out
 
 
 class ConvBN(nn.Module):
@@ -97,8 +120,8 @@ class ConvBN(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self.act = act
 
-    def forward(self, x):
-        x = batch_norm(conv(x, self.Conv_0), self.BatchNorm_0)
+    def forward(self, x, train=False):
+        x = batch_norm(conv(x, self.Conv_0), self.BatchNorm_0, train)
         return x if self.act is None else self.act(x)
 
 
@@ -141,12 +164,12 @@ class InvertedResidual(nn.Module):
         self.n_convs = len(convs)
         self.SqueezeExcite_0 = SqueezeExcite(hidden_dim) if use_se else None
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         convs = [getattr(self, f'ConvBN_{i}') for i in range(self.n_convs)]
         y = x
         for m in convs[:-2]:
-            y = m(y)
-        y = convs[-2](y)
+            y = m(y, train)
+        y = convs[-2](y, train)
         se = self.SqueezeExcite_0
         if self.act_first:
             y = self.act(y)
@@ -156,7 +179,7 @@ class InvertedResidual(nn.Module):
             if se is not None:
                 y = se(y)
             y = self.act(y)
-        y = convs[-1](y)
+        y = convs[-1](y, train)
         return x + y if self.identity else y
 
 

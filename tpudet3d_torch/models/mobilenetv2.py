@@ -45,10 +45,10 @@ class _MBConv(nn.Module):
         for i, m in enumerate(convs):
             self.add_module(f'ConvBN_{i}', m)
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         y = x
         for i in range(self.n_convs):
-            y = getattr(self, f'ConvBN_{i}')(y)
+            y = getattr(self, f'ConvBN_{i}')(y, train)
         return x + y if self.identity else y
 
 

@@ -6,7 +6,8 @@ hard-swish).  ``mobilenetv3_large_21k`` is timm's ``mobilenetv3_large_100``
 layout: SE after the post-depthwise activation and a head without BN.
 
 ``features`` and ``forward`` take NCHW; ``forward`` returns
-``[B, feature_dim]``.
+``[B, feature_dim]``.  ``train=True`` runs every batch norm on the batch's
+statistics and updates the running ones (``layers.batch_norm``).
 """
 
 from torch import nn
@@ -85,17 +86,18 @@ class MobileNetV3(nn.Module):
                         nn.BatchNorm1d(self.feature_dim, eps=1e-5,
                                        momentum=0.1))
 
-    def features(self, x):
+    def features(self, x, train=False):
         for i in range(self.n_blocks):
-            x = getattr(self, f'blocks_{i}')(x)
+            x = getattr(self, f'blocks_{i}')(x, train)
         return x
 
-    def head(self, pooled):
+    def head(self, pooled, train=False):
         """Post-pool trunk: Dense → BN → h-swish (timm variant: no BN)."""
         y = linear(pooled, self.head_dense)
         if self.head_bn is not None:
-            y = batch_norm(y, self.head_bn)
+            y = batch_norm(y, self.head_bn, train)
         return hard_swish(y)
 
-    def forward(self, x, pooling_mode='avg'):
-        return self.head(global_pool(self.features(x), pooling_mode))
+    def forward(self, x, pooling_mode='avg', train=False):
+        return self.head(global_pool(self.features(x, train), pooling_mode),
+                         train)

@@ -1,14 +1,19 @@
 """Multi-head 3D-vertex regressor (counterpart of
-``tpudet3d/models/wrapper.py``), export mode only.
+``tpudet3d/models/wrapper.py``), for serving, export and training.
 
 All 9 per-class heads are one ``[9, C, 18]`` tensor, so one matmul computes
-every head for every sample.  ``forward`` returns the export convention of
-the JAX module's ``export=True``: sigmoid keypoints for all heads as
+every head for every sample.  ``forward(x)`` returns the export convention
+of the JAX module's ``export=True``: sigmoid keypoints for all heads as
 ``[9, B, 9, 2]`` plus class logits ``[B, num_classes]``.  With
 ``pre_activation=True`` it returns the heads before the sigmoid,
 ``[B, 9, 18]`` float32 with the bias added, plus the same logits: the
-serving engine finishes them with kernel K4 (``infer/epilogue.py``).  The
-training branch (GT-class head selection) belongs to the training slice.
+serving engine finishes them with kernel K4 (``infer/epilogue.py``).
+
+``forward(x, cats=cats)`` is the JAX module's training and evaluation
+branch: the head of each sample's ground-truth class, ``[B, 9, 2]`` after
+the sigmoid, in float32, plus the logits.  ``train=True`` (keyword-only)
+adds the training batch norm (``layers.batch_norm``) and the classifier's
+dropout, whose mask is drawn from the caller's ``generator``.
 """
 
 import math
@@ -18,9 +23,25 @@ from torch import nn
 
 from .layers import global_pool, linear
 
-__all__ = ['MultiHeadRegressor', 'MAX_CLASSES']
+__all__ = ['MultiHeadRegressor', 'MAX_CLASSES', 'dropout']
 
 MAX_CLASSES = 9
+
+
+def dropout(x, rate, generator):
+    """Flax's ``nn.Dropout``: keep each value with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``.  The uniform draws come
+    from ``generator`` on its own device, so one seed gives one mask on
+    either device."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout at a rate above 0 needs a generator')
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, 0.0)
 
 
 class MultiHeadRegressor(nn.Module):
@@ -29,13 +50,14 @@ class MultiHeadRegressor(nn.Module):
     runs in float32, as the JAX module's einsum does."""
 
     def __init__(self, backbone, num_classes=9, num_points=18,
-                 pooling_mode='avg', dtype=torch.float32):
+                 pooling_mode='avg', dtype=torch.float32, dropout_rate=0.5):
         super().__init__()
         self.backbone = backbone
         self.num_classes = num_classes
         self.num_points = num_points
         self.pooling_mode = pooling_mode
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         feature_dim = backbone.feature_dim
         self.head_kernel = nn.Parameter(
             torch.zeros(MAX_CLASSES, feature_dim, num_points))
@@ -51,11 +73,13 @@ class MultiHeadRegressor(nn.Module):
         self.head_kernel.uniform_(-limit, limit, generator=generator)
         self.head_bias.zero_()
 
-    def forward(self, x, pre_activation=False):
+    def forward(self, x, pre_activation=False, *, cats=None, train=False,
+                generator=None):
         x = x.to(self.dtype).permute(0, 3, 1, 2)    # channels_last view
-        feats = self.backbone.features(x)
-        pooled = self.backbone.head(global_pool(feats, self.pooling_mode))
-        pooled = pooled.float()
+        feats = self.backbone.features(x, train)
+        pooled = self.backbone.head(global_pool(feats, self.pooling_mode),
+                                    train)
+        pooled = pooled.to(self.head_kernel.dtype)   # the heads: float32
         b, c = pooled.shape
         # every head in one matmul with the bias added, straight into the
         # [B, 9, 18] layout (the [9, C, 18] kernel is copied to [C, 9·18])
@@ -63,6 +87,8 @@ class MultiHeadRegressor(nn.Module):
             self.head_bias.reshape(-1), pooled,
             self.head_kernel.permute(1, 0, 2).reshape(c, -1)).view(
             b, MAX_CLASSES, self.num_points)
+        if cats is not None:
+            return self._select(all_kp, pooled, cats, train, generator)
         if self.num_classes > 1:
             logits = linear(pooled.to(self.dtype), self.cls_fc)
         else:
@@ -72,3 +98,16 @@ class MultiHeadRegressor(nn.Module):
         kp = torch.sigmoid(all_kp).transpose(0, 1).reshape(
             MAX_CLASSES, b, self.num_points // 2, 2)
         return kp, logits
+
+    def _select(self, all_kp, pooled, cats, train, generator):
+        """The ground-truth class's head, ``[B, 9, 2]`` after the sigmoid,
+        and the logits (the categories themselves with one class)."""
+        b = pooled.shape[0]
+        idx = cats.long().view(b, 1, 1).expand(b, 1, self.num_points)
+        sel = all_kp.gather(1, idx)
+        kp = torch.sigmoid(sel).view(b, self.num_points // 2, 2)
+        if self.num_classes == 1:
+            return kp, cats[:, None].to(pooled.dtype)
+        if train:
+            pooled = dropout(pooled, self.dropout_rate, generator)
+        return kp, linear(pooled.to(self.dtype), self.cls_fc)

@@ -41,6 +41,7 @@ GROUPS = (
     ('reduction', ('reduce',)),
     ('sort / index', ('sort', 'radix', 'gather', 'scatter', 'index',
                       'arange')),
+    ('optimizer', ('multi_tensor_apply',)),
     ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
     ('copy / fill', ('copy', 'memcpy', 'memset', 'fill')),
 )
