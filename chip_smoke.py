@@ -81,6 +81,20 @@ Phases, each fatal on failure:
    the plain K5, the IoU within 1e-5 a sample); step ms (median of 20
    after 5 warm-up steps), images/s, peak memory, and device busy time,
    idle share and kernel groups over 5 steps under ``torch.profiler``.
+9. Train el0 end to end at full width (``configs/scene_regressor_el0_ema.py``
+   through ``setup_training``, ``Trainer`` and ``Evaluator``, bf16, batch
+   128 of 224², EMA 0.995, the config's augmentations fused into the
+   step and, with cv2, its warps in the loader threads;
+   ``SyntheticObjectron`` items in place of the scenes; 2048 items, 2 epochs of 16 steps, validation
+   on 512 after each, a snapshot each epoch): finite metrics, the
+   learning rate from the schedule, the EMA moving, no synchronising call
+   inside a step, exactly 4 K5 launches in the last validation (the IoU)
+   and none elsewhere, the IoU against the plain K5, the augmentations on
+   the card against the CPU's given the same draws, ``resume_from``
+   ``snap_0.pt`` bit for bit, and ``build_engine`` serving ``snap_1.pt``'s
+   EMA bit for bit through ``infer_batch``; loop, loader, step and
+   validation throughput, a profiled epoch's busy time and idle share,
+   the augmentations' launches and device ms, snapshot seconds.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1925,6 +1939,16 @@ def eval_against_plain(dev, parts, batch, wrappers):
                 launches_iou=n_iou, launches_no_iou=n_none)
 
 
+def device_events(prof):
+    """The profile's kernels, copies and fills on the card: not the
+    device-side ranges of ``record_function`` annotations (the optimizer's
+    ``step`` and ``zero_grad``), which span other events and would count
+    their time again."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+
+
 def train_times(parts, batch, gen):
     """Median step ms over TRAIN_TIMED steps after TRAIN_WARMUP (CUDA events
     between steps, no host read inside), images/s, peak memory, and over
@@ -1958,10 +1982,9 @@ def train_times(parts, batch, gen):
         torch.cuda.synchronize()
         profiled = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    for e in device_events(prof):
+        t, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(t for t, _ in kernels.values()) / TRAIN_PROFILED
     groups = {}
     for name, (t, n) in kernels.items():
@@ -2062,6 +2085,334 @@ def training_path(dev, wrappers, gpu):
               f'{ev["iou_err"]:.3g}')
         del parts, state, step, eval_step
         torch.cuda.empty_cache()
+    return out
+
+
+# phase 9: the training loop at full width (data path, epochs, validation,
+# snapshots), configs/scene_regressor_el0_ema.py with what the time limit
+# needs: SyntheticObjectron's items in place of SceneCrops (which renders a
+# 640×480 scene on the host per item pair), 2048 of them, 2 epochs
+LOOP_OVERRIDES = dict(synthetic=True, synthetic_length=2048, max_epochs=2,
+                      save_freq=1, eval_freq=1)
+LOOP_STEPS, LOOP_VAL_BATCHES = 16, 4
+# the augmentations on the card against the CPU, relative after
+# normalisation; a device warp moves with an ulp of its source coordinates
+# times the image's gradient, so its bound grows with the image
+# (tests/test_torch_port_data.py)
+AUG_TOL, WARP_TOL = 1e-5, 1e-6    # the latter × max(h, w)
+AUG_PROFILED = 5
+
+
+class ScalarLog:
+    """A stand-in for the trainer's summary writer: every scalar with the
+    host clock when it was written (a step's metrics are read then)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, global_step=None):
+        self.rows.append((tag, float(value), global_step,
+                          time.perf_counter()))
+
+    def losses(self):
+        return [(v, s, t) for tag, v, s, t in self.rows if tag == 'Train/loss']
+
+
+def sync_checked(fn):
+    """``fn`` with any synchronising CUDA call inside it an error."""
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return guarded
+
+
+def loop_config(out_dir):
+    from tpudet3d_torch.core.config import read_py_config
+    cfg = read_py_config(EL0_CONFIG)
+    for k in ('synthetic', 'synthetic_length', 'max_epochs'):
+        cfg.data[k] = LOOP_OVERRIDES[k]
+    for k in ('save_freq', 'eval_freq'):
+        cfg.utils[k] = LOOP_OVERRIDES[k]
+    cfg.output_dir = out_dir
+    return cfg
+
+
+def train_state_copy(state):
+    """Clones of every field ``resume_from`` restores."""
+    import copy
+    return dict(params={k: v.detach().clone() for k, v in
+                        state.model.state_dict().items()
+                        if not k.endswith('num_batches_tracked')},
+                optimizer=copy.deepcopy(state.optimizer.state_dict()),
+                alwa={f: getattr(state.alwa, f).clone() for f in
+                      ('lam_cls', 'lam_reg', 'sum_cls', 'sumsq_cls',
+                       'sum_reg', 'sumsq_reg', 'count')},
+                step=state.step.clone(),
+                ema={k: v.clone() for k, v in state.ema_params.items()})
+
+
+def same_state(a, b, what):
+    """Expect two ``train_state_copy`` s equal bit for bit."""
+    for k, v in a['params'].items():
+        expect(torch.equal(v, b['params'][k]), f'{what}: {k}')
+    sa, sb = a['optimizer']['state'], b['optimizer']['state']
+    expect(sa.keys() == sb.keys(), f'{what}: optimizer state keys')
+    for i in sa:
+        for k, v in sa[i].items():
+            expect(torch.equal(torch.as_tensor(v).cpu(),
+                               torch.as_tensor(sb[i][k]).cpu()),
+                   f'{what}: optimizer state {i} {k}')
+    expect([g['lr'] for g in a['optimizer']['param_groups']] ==
+           [g['lr'] for g in b['optimizer']['param_groups']],
+           f'{what}: learning rate')
+    for k, v in a['alwa'].items():
+        expect(torch.equal(v, b['alwa'][k]), f'{what}: ALWA {k}')
+    expect(torch.equal(a['step'], b['step']), f'{what}: step')
+    for k, v in a['ema'].items():
+        expect(torch.equal(v, b['ema'][k]), f'{what}: EMA {k}')
+
+
+def kernel_profile(fn, calls):
+    """Device busy ms, launches and wall ms of ``calls`` calls of ``fn``
+    under ``torch.profiler``; returns also the kernels by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudet3d_torch.tools.profile_serving import group_of
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, launches, groups, names = 0.0, 0, {}, {}
+    for e in device_events(prof):
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        launches += 1
+        for key, table in ((group_of(e.name), groups), (e.name, names)):
+            g = table.setdefault(key, [0.0, 0])
+            g[0] += ms
+            g[1] += 1
+    expect(busy > 0, 'the profiler saw no device time')
+
+    def ranked(table, n=None):
+        return dict(sorted(table.items(), key=lambda kv: -kv[1][0])[:n])
+    return dict(busy_ms=busy, launches=launches, wall_ms=wall,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                groups=ranked(groups), top_kernels=ranked(names, 8))
+
+
+def check_augmentations(dev, cfg, imgs, kps):
+    """The train pipelines (host warps or device warps) on the card
+    against the same functions on the CPU, given the same draws."""
+    from tpudet3d_torch.data.transforms import build_augmentations
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for host_geometric in (True, False):
+        aug = build_augmentations(cfg, host_geometric=host_geometric)[0]
+        params = aug.sample(imgs.shape[0], gen, dev)
+        out = aug.apply(imgs.to(dev), kps.to(dev), params)
+
+        def cpu(tree):
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [cpu(v) for v in tree]
+            return tree.cpu()
+
+        ref = aug.apply(imgs, kps, cpu(params))
+        for name, a, b in zip(('images', 'keypoints'), out, ref):
+            e = rel_err(a, b)
+            tol = (AUG_TOL if host_geometric or name == 'keypoints'
+                   else WARP_TOL * max(imgs.shape[1:3]))
+            expect(e <= tol, f'augmentations (host_geometric='
+                   f'{host_geometric}) {name}: card against CPU {e}')
+            errs[f'{name} host_geometric={host_geometric}'] = e
+    return errs
+
+
+def loop_path(dev, wrappers, frames_np, gpu):
+    """Phase 9: the regressor's training loop at full width; returns its
+    numbers."""
+    import os
+    import tempfile
+
+    from tpudet3d_torch.core.prng import set_random_seed
+    from tpudet3d_torch.eval.evaluator import Evaluator
+    from tpudet3d_torch.infer import build_engine
+    from tpudet3d_torch.train import current_learning_rate
+    from tpudet3d_torch.train.pipeline import setup_training
+    from tpudet3d_torch.train.trainer import Trainer
+    from tpudet3d_torch.utils.checkpoint import resume_from, save_snap
+    out = {'launches': {}, 'overrides': LOOP_OVERRIDES}
+    root = tempfile.mkdtemp(prefix='loop_')
+    cfg = loop_config(root)
+    seed = set_random_seed(int(cfg.utils.random_seeds))
+    pipe = setup_training(cfg, device=dev, seed=seed)
+    state = pipe.state
+    expect(len(pipe.train_loader) == LOOP_STEPS and
+           len(pipe.val_loader) == LOOP_VAL_BATCHES,
+           f'loader lengths {len(pipe.train_loader)}, {len(pipe.val_loader)}')
+    try:
+        import cv2
+        out['cv2'] = cv2.__version__
+    except ImportError:
+        out['cv2'] = None
+    # the geometric augmentations run in the loader threads with cv2 and
+    # are off without it, as in the JAX package
+    expect((pipe.train_loader.host_transform is None) == (out['cv2'] is None),
+           f'host warps with cv2 {out["cv2"]}')
+    log = ScalarLog()
+    puts, batches = [], []
+
+    def put(imgs, kps, cats):
+        puts.append(time.perf_counter())
+        if len(batches) < 1:
+            batches.append((imgs, kps, cats))
+        return pipe.put_fn(imgs, kps, cats)
+
+    trainer = Trainer(train_step=sync_checked(pipe.train_step), state=state,
+                      train_loader=pipe.train_loader,
+                      lr_schedule=pipe.lr_schedule, writer=log,
+                      max_epoch=int(cfg.data.max_epochs), log_path=root,
+                      put_fn=put, generator=torch.Generator(
+                          device=dev).manual_seed(seed),
+                      save_freq=int(cfg.utils.save_freq), print_freq=8)
+    evaluator = Evaluator(eval_step=pipe.eval_step,
+                          state_fn=lambda: trainer.state,
+                          val_loader=pipe.val_loader, test_loader=None,
+                          test_transform=pipe.test_aug, put_fn=pipe.put_fn)
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+
+    def counted(name, fn, k5=0):
+        res, n = drive(wrappers, fn)
+        out['launches'][name] = n
+        expect(n == [0, 0, 0, 0, k5, 0, 0],
+               f'{name}: launches {n}, want K5 {k5} and no other')
+        return res
+
+    epochs = {}
+    for epoch in range(int(cfg.data.max_epochs)):
+        last = epoch == int(cfg.data.max_epochs) - 1
+        n_log, n_put = len(log.losses()), len(puts)
+        counted(f'train epoch {epoch}', lambda: trainer.train(epoch, last))
+        losses = log.losses()[n_log:]
+        expect(len(losses) == LOOP_STEPS and len(puts) - n_put == LOOP_STEPS,
+               f'epoch {epoch}: {len(losses)} steps')
+        expect(all(np.isfinite(v) for v, _, _ in losses) and all(
+            np.isfinite(v) for _, v, _, _ in log.rows), 'non-finite metrics')
+        lr = current_learning_rate(state.optimizer)
+        expect(lr == pipe.lr_schedule(epoch), f'epoch {epoch}: lr {lr}')
+        expect(os.path.isfile(os.path.join(root, f'snap_{epoch}.pt')),
+               f'snap_{epoch}.pt not written')
+        if epoch == 0:
+            after0 = train_state_copy(state)
+        t0 = time.perf_counter()
+        val = counted(f'val epoch {epoch}', lambda: evaluator.val(epoch, last),
+                      k5=LOOP_VAL_BATCHES if last else 0)
+        expect(all(np.isfinite(v) for v in val), f'val epoch {epoch}')
+        epochs[epoch] = dict(
+            loop_s=losses[-1][2] - puts[n_put],
+            images_per_s=LOOP_STEPS * TRAIN_BATCH
+            / (losses[-1][2] - puts[n_put]),
+            loss_first=losses[0][0], loss_last=losses[-1][0], lr=lr,
+            val=dict(zip(('ADD', 'SADD', 'ACC', 'IOU'), map(float, val))),
+            val_s=time.perf_counter() - t0)
+    out['epochs'] = epochs
+    moved = any(not torch.equal(state.ema_params[k], ema0[k]) for k in ema0)
+    params = dict(state.model.named_parameters())
+    lags = any(not torch.equal(state.ema_params[k], params[k]) for k in ema0)
+    expect(moved and lags, 'the EMA did not move or does not lag')
+    expect(int(state.step) == 2 * LOOP_STEPS, 'step count')
+
+    # the validation IoU of one batch through the kernel and the plain K5
+    imgs, kps, cats = pipe.put_fn(*batches[0])
+    vimgs, vkps = pipe.test_aug(imgs, kps, torch.Generator(
+        device=dev).manual_seed(1))
+    ev = eval_against_plain(dev, (state, None, pipe.eval_step),
+                            (vimgs, vkps, cats), wrappers)
+    out['val_iou_err'] = ev['iou_err']
+
+    # the augmentations on the card against the CPU, the same draws
+    out['aug_err'] = check_augmentations(dev, cfg, *(
+        torch.from_numpy(np.asarray(a)) for a in batches[0][:2]))
+
+    # resume: snap_0 into a fresh state is the state after epoch 0
+    fresh = setup_training(cfg, device=dev, seed=seed, with_loaders=False)
+    t0 = time.perf_counter()
+    _, start = resume_from(fresh.state,
+                           os.path.join(root, 'snap_0.pt'))
+    out['resume_s'] = time.perf_counter() - t0
+    expect(start == 1, f'resume: start epoch {start}')
+    same_state(train_state_copy(fresh.state), after0, 'resume from snap_0')
+    del fresh
+    t0 = time.perf_counter()
+    save_snap(state, 99, tempfile.mkdtemp(prefix='snap_'))
+    out['save_snap_s'] = time.perf_counter() - t0
+
+    # serve the trained snapshot: build_engine finds snap_1.pt, the EMA
+    reg_cfg = os.path.join(root, 'reg_config.py')
+    with open(reg_cfg, 'w') as f:
+        f.write(f'exec(open({os.path.abspath(EL0_CONFIG)!r}).read())\n'
+                f'output_dir = {root!r}\n')
+    engine = build_engine(reg_cfg, det_conf=0.0, device=dev)
+    served = engine.reg_model.state_dict()
+    for k, v in state.model.state_dict().items():
+        if not k.endswith('num_batches_tracked'):
+            want = state.ema_params.get(k, v)
+            expect(torch.equal(served[k], want), f'served {k} is not the '
+                   f'trained EMA')
+    res, n = drive(wrappers, lambda: engine.infer_batch(frames_np))
+    out['launches']['trained el0 infer_batch(16)'] = n
+    expect(n == [1, 1, 1, 1, 0, 0, 0], f'serving the trained snapshot: '
+           f'launches {n}')
+    check_results(res, *FRAME[:2])
+    del engine
+
+    # numbers: the loader alone, validation, the step alone, the loop's
+    # busy and idle share, the augmentations
+    t0 = time.perf_counter()
+    n_img = sum(b[0].shape[0] for b in pipe.train_loader)
+    out['loader_images_per_s'] = n_img / (time.perf_counter() - t0)
+    for iou in (False, True):
+        t0 = time.perf_counter()
+        counted(f'val iou={iou}', lambda: evaluator.val(None, iou),
+                k5=LOOP_VAL_BATCHES if iou else 0)
+        out[f'val_examples_per_s_iou_{iou}'] = (
+            len(pipe.val_loader.dataset) / (time.perf_counter() - t0))
+    trainer.save_chkpt = False
+    loop = kernel_profile(lambda: trainer.train(2, False), 1)
+    loop['images_per_s'] = LOOP_STEPS * TRAIN_BATCH / loop['wall_ms'] * 1e3
+    out['profiled_epoch'] = loop
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out['aug'] = kernel_profile(lambda: pipe.train_aug(imgs, kps, gen),
+                                AUG_PROFILED)
+    for k in ('busy_ms', 'launches', 'wall_ms'):
+        out['aug'][k] /= AUG_PROFILED
+    out['step'] = train_times((state, pipe.train_step, None),
+                              (imgs, kps, cats), gen)
+    e1, st = epochs[1], out['step']
+    print(f'training loop el0 ({EL0_CONFIG}, {LOOP_OVERRIDES}) on {gpu}: '
+          f'epoch 1 {e1["images_per_s"]:.1f} images/s (loss '
+          f'{e1["loss_first"]:.4f} → {e1["loss_last"]:.4f}), loader alone '
+          f'{out["loader_images_per_s"]:.1f} images/s, step alone '
+          f'{st["step_ms"]:.2f} ms ({st["images_per_s"]:.1f} images/s, '
+          f'peak {st["peak_memory_gib"]:.2f} GiB); a profiled epoch '
+          f'{loop["images_per_s"]:.1f} images/s, device busy '
+          f'{loop["busy_ms"]:.1f} of {loop["wall_ms"]:.1f} ms (idle share '
+          f'{loop["idle_share"]:.3f}); augmentations {out["aug"]["launches"]:.0f} '
+          f'launches, {out["aug"]["busy_ms"]:.3f} ms a step on the device; '
+          f'validation {out["val_examples_per_s_iou_False"]:.1f} / '
+          f'{out["val_examples_per_s_iou_True"]:.1f} examples/s without / '
+          f'with the IoU; save_snap {out["save_snap_s"]:.2f} s, resume_from '
+          f'{out["resume_s"]:.2f} s; |K5 - plain| {ev["iou_err"]:.3g}; '
+          f'cv2 {out["cv2"]}; '
+          f'augmentations card vs CPU {max(out["aug_err"].values()):.3g}')
     return out
 
 
@@ -2185,6 +2536,11 @@ def run(dev, out_path, iters=20):
     # width, the card's f32 step against the CPU's, the eval step with K5
     training = training_path(dev, wrappers + (iou,) + int8_wrappers, gpu)
     done('8 training path')
+
+    # 9. the training loop of el0 at full width: data, epochs, validation
+    # with K5, snapshots, resume, serving the trained snapshot
+    loop = loop_path(dev, wrappers + (iou,) + int8_wrappers, frames_np, gpu)
+    done('9 training loop')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -2230,6 +2586,8 @@ def run(dev, out_path, iters=20):
         k['launches_flagship'] = {run: n[i] for run, n in runs.items()}
         k['launches_train'] = {run: n[i] for run, n in
                                training['launches'].items()}
+        k['launches_loop'] = {run: n[i] for run, n in
+                              loop['launches'].items()}
         k['launches_int8'] = {name: n[i] for name, n in
                               int8['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
@@ -2270,7 +2628,8 @@ def run(dev, out_path, iters=20):
               f"{k['launches_el0']} on el0 infer_batch(16), "
               f"{k['launches_flagship']['demo loop']} on the demo loop, "
               f"{k['launches_int8']} int8 infer_batch(16), "
-              f"{k['launches_train']} on the training path), max "
+              f"{k['launches_train']} on the training path, "
+              f"{k['launches_loop']} on the training loop), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -2280,7 +2639,7 @@ def run(dev, out_path, iters=20):
                        'serving': times, 'max_det_128': wide,
                        'evaluation': evaluation, 'flagship': flagship,
                        'int8': int8, 'training': training,
-                       'phase_s': phase_s,
+                       'loop': loop, 'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)
     print(json.dumps({'ok': True, 'device': {

@@ -34,7 +34,7 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_no_silent_cpu_default(monkeypatch):
+def test_no_silent_cpu_default(monkeypatch, tmp_path):
     from tpudet3d_torch.core import read_py_config, resolve_device
     from tpudet3d_torch.infer import build_engine
     from tpudet3d_torch.losses import LossManager, build_loss
@@ -56,6 +56,16 @@ def test_no_silent_cpu_default(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device()
     assert resolve_device('cpu') == torch.device('cpu')
+    # the training loop's entry points: setup_training and the CLI
+    from tpudet3d_torch.tools import main as train_cli
+    from tpudet3d_torch.train.pipeline import setup_training
+    with pytest.raises(RuntimeError, match='CUDA'):
+        setup_training(cfg, with_loaders=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_cli.main(['--config', os.path.join(REPO, 'configs',
+                                                 'scene_regressor.py'),
+                        '--output_dir', str(tmp_path / 'out')])
 
 
 def test_source_names_no_jax_import():

@@ -1,10 +1,13 @@
-from .config import AttrDict, read_py_config, check_isfile
+from .config import AttrDict, read_py_config, check_isfile, merge_cli_overrides
 from .device import resolve_device
-from .logging import mkdir_if_missing
+from .logging import Logger, mkdir_if_missing
+from .meters import AverageMeter, TextTable
+from .prng import set_random_seed
 
 # the regressor's class order (copy of tpudet3d/core/__init__.py:7)
 OBJECTRON_CLASSES = ('bike', 'book', 'bottle', 'cereal_box', 'camera',
                      'chair', 'cup', 'laptop', 'shoe')
 
-__all__ = ['AttrDict', 'read_py_config', 'check_isfile', 'resolve_device',
-           'mkdir_if_missing', 'OBJECTRON_CLASSES']
+__all__ = ['AttrDict', 'read_py_config', 'check_isfile', 'merge_cli_overrides',
+           'resolve_device', 'Logger', 'mkdir_if_missing', 'AverageMeter',
+           'TextTable', 'set_random_seed', 'OBJECTRON_CLASSES']

@@ -11,7 +11,7 @@ import importlib.util
 import os.path as osp
 import warnings
 
-__all__ = ['AttrDict', 'read_py_config', 'check_isfile']
+__all__ = ['AttrDict', 'read_py_config', 'check_isfile', 'merge_cli_overrides']
 
 
 class AttrDict(dict):
@@ -95,3 +95,13 @@ def read_py_config(filename):
         name: value for name, value in vars(mod).items()
         if not name.startswith('__')
     })
+
+
+def merge_cli_overrides(cfg, args):
+    """``--root`` and ``--output_dir`` of the training CLI override the
+    config's ``data.root`` and ``output_dir`` when given."""
+    if getattr(args, 'root', ''):
+        cfg.data.root = args.root
+    if getattr(args, 'output_dir', ''):
+        cfg.output_dir = args.output_dir
+    return cfg

@@ -1,13 +1,13 @@
-"""Objectron-protocol evaluation and batched metrics (counterpart of
-``tpudet3d/eval``; the training ``Evaluator`` belongs to the training
-slice)."""
+"""Objectron-protocol evaluation, batched metrics and the training
+``Evaluator`` (counterpart of ``tpudet3d/eval``)."""
+from .evaluator import Evaluator
 from .metrics import (add_sadd_per_sample, compute_2d_based_iou,
                       compute_accuracy, compute_average_distance,
                       compute_metrics_per_cls)
 from .protocol import (AveragePrecision, HitMiss, ObjectronProtocolEvaluator,
                        parse_example, read_tfrecord)
 
-__all__ = ['add_sadd_per_sample', 'compute_2d_based_iou', 'compute_accuracy',
+__all__ = ['Evaluator', 'add_sadd_per_sample', 'compute_2d_based_iou', 'compute_accuracy',
            'compute_average_distance', 'compute_metrics_per_cls',
            'AveragePrecision', 'HitMiss', 'ObjectronProtocolEvaluator',
            'parse_example', 'read_tfrecord']
