@@ -9,8 +9,8 @@ Phases, each fatal on failure:
    paths' shapes (K1 resize at N=1 and 16 of 720p and on every shape of
    ``K1_CASES``, K2 crop on every case of ``K2_CASES`` with TTA off and
    on, K3 decode+NMS at A=2044, C=9 on every case of ``K3_CASES`` (K up
-   to 2044), K4 head epilogue on 128 crops with TTA off and on in refine
-   and pack mode with bf16 logits that carry exact ties, and at 1, 127,
+   to 2044; detector validation's and self-labelling's shapes), K4 head
+   epilogue on 128 crops with TTA off and on in refine and pack mode with bf16 logits that carry exact ties, and at 1, 127,
    129 and 128 crops also on logits with NaNs and ties across its warp
    reduction, K5 oriented-box IoU at P=1, 8, 128 and 129 on random boxes
    and on exact cases, and against scipy on 32 pairs) and time kernel, plain version and, where one exists, the
@@ -95,6 +95,29 @@ Phases, each fatal on failure:
    EMA bit for bit through ``infer_batch``; loop, loader, step and
    validation throughput, a profiled epoch's busy time and idle share,
    the augmentations' launches and device ms, snapshot seconds.
+10. Train the detector at full width (``tools/train_detector.py``'s path,
+   ``tpudet3d_torch.detect.train``): first the card's float32 step of the
+   cascade w1.0 against the CPU's (batch 4 of 300² SyntheticDetection
+   hard items through the augmentations with fixed draws, GIoU 2, SGD
+   with momentum and weight decay, 2 steps from the same weights; stage-1
+   assignment equal, stage 2 but where the devices' IoUs straddle 0.5,
+   the metrics, the gradients and the moves of parameters and momentum
+   within DET_NOISE times the CPU's own float32 rounding against float64,
+   the running statistics); then
+   ``configs/detection/mnv2_ssd_300_scene_cascade.py`` (bf16, batch 64 of
+   300², SGD 0.05 with warmup, GIoU 2, flip 0.5) on 1024
+   SyntheticDetection(hard) items, 2 epochs of 16 steps with validation
+   (mAP@0.5 through K3: 4 launches each, none in a step, no other kernel;
+   one batch's rows against the plain K3 and the mAP unchanged through
+   it), the learning rate from ``warmup_step_lr`` at each step, no
+   synchronising call in a step or the augmentations, snapshots;
+   ``resume_from`` ``snap_0.pt`` bit for bit; ``build_engine`` serving
+   ``snap_1.pt`` bit for bit (K1–K4 once each for 16 frames);
+   ``generate_selflabel_boxes`` over 32 scenes (one K3 launch, the same
+   npz through the plain K3) consumed by ``SceneCrops``; loop, loader,
+   validation and self-label throughput, a profiled epoch's idle share,
+   the step alone for the cascade and ``mnv2_ssd_300_synthetic_hard.py``
+   and the loss alone (launches, device ms).
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -382,7 +405,9 @@ def compare_dets(out, ref, what):
 # soft-NMS decays in shared memory; the kernel's large-K instantiation at
 # K=512 (max_detections 128: bit rows in shared memory) and K=2044
 # (max_detections 511, the most the 2044 anchors allow: bit rows in the
-# device scratch).
+# device scratch); detector training's two shapes: its validation (N=64,
+# K=200, max_det 100) and self-labelling (N=32, K=64, max_det 16, floor
+# 0.05).
 K3_SOFT = K3_SETTINGS['soft']
 K3_CASES = (('greedy', 16, 'random', {}),
             ('soft', 16, 'random', K3_SOFT),
@@ -405,7 +430,11 @@ K3_CASES = (('greedy', 16, 'random', {}),
                 soft_nms_dup_iou=0.8)),
             ('k2044', 16, 'random', dict(pre_nms_k=2044, max_per_img=511)),
             ('k2044_vote', 16, 'random', dict(
-                pre_nms_k=2044, max_per_img=511, box_vote_iou=0.6)))
+                pre_nms_k=2044, max_per_img=511, box_vote_iou=0.6)),
+            ('det_eval', 64, 'random', dict(pre_nms_k=200,
+                                            max_per_img=100)),
+            ('selflabel', 32, 'random', dict(score_thr=0.05, pre_nms_k=64,
+                                             max_per_img=16)))
 
 
 def k3_case(case, dev, n=None):
@@ -1950,24 +1979,30 @@ def device_events(prof):
 
 
 def train_times(parts, batch, gen):
-    """Median step ms over TRAIN_TIMED steps after TRAIN_WARMUP (CUDA events
-    between steps, no host read inside), images/s, peak memory, and over
-    TRAIN_PROFILED steps under ``torch.profiler`` the device busy time
-    (the sum of kernel times; one stream), the idle share of that window
-    (1 - busy / its wall time per step) and the kernel groups."""
+    """:func:`step_times` of the regressor's train step at TRAIN_BATCH."""
+    state, step, _ = parts
+    return step_times(lambda: step(state, *batch, gen), TRAIN_BATCH)
+
+
+def step_times(step, batch_size):
+    """Median ms of ``step()`` over TRAIN_TIMED calls after TRAIN_WARMUP
+    (CUDA events between calls, no host read inside), images/s at
+    ``batch_size``, peak memory, and over TRAIN_PROFILED calls under
+    ``torch.profiler`` the device busy time (the sum of kernel times; one
+    stream), the idle share of that window (1 - busy / its wall time per
+    call) and the kernel groups."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpudet3d_torch.tools.profile_serving import group_of
-    state, step, _ = parts
     for _ in range(TRAIN_WARMUP):
-        state, _m = step(state, *batch, gen)
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(TRAIN_TIMED + 1)]
     events[0].record()
     for i in range(TRAIN_TIMED):
-        state, _m = step(state, *batch, gen)
+        step()
         events[i + 1].record()
     torch.cuda.synchronize()
     ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
@@ -1978,7 +2013,7 @@ def train_times(parts, batch, gen):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(TRAIN_PROFILED):
-            state, _m = step(state, *batch, gen)
+            step()
         torch.cuda.synchronize()
         profiled = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED
     kernels = {}
@@ -1993,7 +2028,7 @@ def train_times(parts, batch, gen):
         g[1] += n / TRAIN_PROFILED
     expect(busy > 0, 'the profiler saw no device time in the train steps')
     return dict(step_ms=median, step_ms_min=ms[0], step_ms_max=ms[-1],
-                images_per_s=TRAIN_BATCH / median * 1e3,
+                images_per_s=batch_size / median * 1e3,
                 peak_memory_gib=peak, device_busy_ms=busy,
                 profiled_step_ms=profiled,
                 device_idle_share=max(0.0, 1.0 - busy / profiled),
@@ -2416,6 +2451,546 @@ def loop_path(dev, wrappers, frames_np, gpu):
     return out
 
 
+# phase 10: detector training at full width.  The flagship cascade config
+# with what the time limit needs: SyntheticDetection(hard) items in place
+# of the 640×480 scene renders, 1024 of them (16 steps an epoch, 256
+# validation items in 4 batches), 2 epochs, a snapshot each
+DET_CONFIG = 'configs/detection/mnv2_ssd_300_scene_cascade.py'
+DET_HARD_CONFIG = 'configs/detection/mnv2_ssd_300_synthetic_hard.py'
+DET_OVERRIDES = dict(synthetic=True, synthetic_hard=True,
+                     synthetic_length=1024, max_epochs=2, save_freq=1)
+DET_BATCH, DET_STEPS, DET_VAL_BATCHES = 64, 16, 4
+SELFLABEL_SCENES = 32
+# the card's f32 step against the CPU's: the cascade w1.0 at 300², batch
+# 4, 2 steps, each from the same weights, momentum and statistics.  The
+# mined negatives and the cascade's re-assignment are discrete, so a
+# rounding swaps a few between devices: the gradients, and the moves of
+# the parameters and momentum buffers, are held to DET_NOISE times the
+# CPU's own float32 rounding (its distance from a float64 step of the
+# same weights) plus 1e-6 of their norm; the metrics within 1e-4
+# relative, running means within 1e-4 of their channel's running std and
+# running variances within 1e-4 relative.
+DET_CARD_CPU_BATCH = 4
+DET_NOISE = 4.0
+DET_CARD_CPU_TOL = dict(metrics=1e-4, stats=1e-4)
+
+
+def det_config(out_dir, config=DET_CONFIG):
+    from tpudet3d_torch.core.config import read_py_config
+    cfg = read_py_config(config)
+    for k in ('synthetic', 'synthetic_hard', 'synthetic_length',
+              'max_epochs'):
+        cfg.data[k] = DET_OVERRIDES[k]
+    cfg.utils.save_freq = DET_OVERRIDES['save_freq']
+    cfg.output_dir = out_dir
+    return cfg
+
+
+def det_items(n, seed=3):
+    from tpudet3d_torch.data.detection_dataset import SyntheticDetection
+    ds = SyntheticDetection(length=n, hard=True, seed=seed)
+    items = [ds[i] for i in range(n)]
+    return [np.stack([it[k] for it in items]) for k in range(4)]
+
+
+def det_parts(dev, dtype, lr):
+    """A cascade w1.0 detector state from seed 0 and its train step
+    (GIoU 2, cascade threshold 0.5, SGD momentum 0.9, weight decay 5e-4)
+    on ``dev`` in ``dtype``."""
+    from tpudet3d_torch.detect import SSDDetector
+    from tpudet3d_torch.detect.train import (create_detector_state,
+                                             make_detector_train_step)
+    from tpudet3d_torch.models.layers import init_weights
+    model = SSDDetector(width_mult=1.0, cascade=True, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = create_detector_state(model.to(dtype), lr=lr, momentum=0.9,
+                                  wd=5e-4, device=dev)
+    step = make_detector_train_step(state.model, state.optimizer,
+                                    giou_weight=2.0, cascade_pos_thr=0.5)
+    return state, step
+
+
+def det_vectors(state):
+    """Every parameter (the balance pair too), its gradient and momentum
+    buffer, float64 on the CPU, by name."""
+    named = dict(state.model.named_parameters(), **{
+        f'balance.{k}': p for k, p in state.balance.items()})
+    out = {}
+    for k, p in named.items():
+        buf = state.optimizer.state.get(p, {}).get('momentum_buffer')
+        out[k] = tuple(t.detach().double().cpu() for t in (
+            p, p.grad if p.grad is not None else torch.zeros_like(p),
+            buf if buf is not None else torch.zeros_like(p)))
+    return out
+
+
+def vec_dist(a, b, i):
+    """The norm over every name of ``a[k][i] - b[k][i]`` (``b`` None: of
+    ``a[k][i]``)."""
+    return sum(float(((a[k][i] - (0 if b is None else b[k][i])) ** 2).sum())
+               for k in a) ** 0.5
+
+
+def forward_keep_stats(model, imgs):
+    """The training forward without moving the running statistics."""
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if 'running' in k}
+    with torch.no_grad():
+        out = model(imgs, train=True)
+        for k, v in stats.items():
+            model.state_dict()[k].copy_(v)
+    return out
+
+
+def det_assign_check(models, imgs, gt, anchors):
+    """Stage 1 (anchors against the ground truth) equal on both devices;
+    stage 2 (the refined boxes at 0.5) equal but where the two devices'
+    IoUs straddle the threshold, or fall within 1e-5 of it, or a ground
+    truth's best anchor differs; returns the count of those."""
+    from tpudet3d_torch.detect import assign_anchors, decode_boxes, iou_xyxy
+    outs = []
+    for model, x, (boxes, labels, valid), a in zip(models, imgs, gt,
+                                                    anchors):
+        _, (d1, _) = forward_keep_stats(model, x)
+        a1 = assign_anchors(a, boxes, valid)[0].cpu()
+        refined = decode_boxes(a, d1)
+        a2 = assign_anchors(refined, boxes, valid, 0.5, 0.5)[0].cpu()
+        ious = torch.where(valid[:, None, :], iou_xyxy(refined, boxes), -1.0)
+        outs.append((a1, a2, ious.amax(-1).cpu(), ious.argmax(1).cpu()))
+    (a1c, a2c, ic, bc), (a1d, a2d, idv, bd) = outs
+    expect(torch.equal(a1c, a1d), 'stage-1 assignment differs')
+    diff = a2c != a2d
+    straddle = ((ic - 0.5) * (idv - 0.5) <= 0) | ((ic - 0.5).abs() <= 1e-5)
+    # each valid ground truth's best anchor on either device
+    claimed = torch.zeros_like(diff)
+    valid = gt[0][2].cpu()
+    for b in range(diff.shape[0]):
+        for best in (bc[b][valid[b]], bd[b][valid[b]]):
+            claimed[b, best] = True
+    expect(bool((~diff | straddle | claimed).all()),
+           f'stage-2 assignment differs away from the threshold: '
+           f'{int((diff & ~straddle & ~claimed).sum())} anchors')
+    return int(diff.sum()), int((a2c >= 0).sum())
+
+
+def det_card_against_cpu(dev):
+    """Two f32 steps of the cascade detector on the card and on the CPU
+    (and in float64 on the CPU) from the same weights, on
+    SyntheticDetection(hard) items through the augmentations with fixed
+    draws; before the second step the card and the float64 state take the
+    CPU's weights, momentum and statistics."""
+    from tpudet3d_torch.data.det_transforms import build_detector_augmentations
+    from tpudet3d_torch.detect import generate_anchors
+    lr = 0.05 / 3                       # the warmup's first learning rate
+    parts = {'cpu': det_parts('cpu', torch.float32, lr),
+             'card': det_parts(dev, torch.float32, lr),
+             'f64': det_parts('cpu', torch.float64, lr)}
+    imgs_u8, boxes, labels, valid = (torch.from_numpy(a) for a in
+                                     det_items(DET_CARD_CPU_BATCH))
+    aug = build_detector_augmentations(0.5, 0.5)
+    draws = aug.sample(DET_CARD_CPU_BATCH, torch.Generator().manual_seed(2),
+                       'cpu')
+    imgs, aug_boxes = aug.apply(imgs_u8, boxes, draws)
+    imgs_d, boxes_d = aug.apply(imgs_u8.to(dev), boxes.to(dev),
+                                {k: v.to(dev) for k, v in draws.items()})
+    aug_err = rel_err(imgs_d, imgs)
+    expect(aug_err <= AUG_TOL and torch.equal(boxes_d.cpu(), aug_boxes),
+           f'detector augmentations: card against CPU {aug_err}')
+    gt = (aug_boxes, labels.long(), valid)
+    gt_d = tuple(t.to(dev) for t in gt)
+    anchors = torch.from_numpy(generate_anchors())
+    errs = dict(aug=aug_err, metrics=0.0, stage2_flips=[], stage2_pos=[],
+                grad_card=[], grad_cpu_f64=[], param_card=[],
+                param_cpu_f64=[], momentum_card=[], momentum_cpu_f64=[],
+                stats=0.0)
+    with cudnn_deterministic():
+        for i in range(2):
+            flips, n_pos = det_assign_check(
+                (parts['cpu'][0].model, parts['card'][0].model),
+                (imgs, imgs_d), (gt, gt_d), (anchors, anchors.to(dev)))
+            errs['stage2_flips'].append(flips)
+            errs['stage2_pos'].append(n_pos)
+            start = det_vectors(parts['cpu'][0])
+            res = {}
+            for name, (state, step) in parts.items():
+                x, g = (imgs_d, gt_d) if name == 'card' else (imgs, gt)
+                if name == 'f64':
+                    x, g = x.double(), (g[0].double(),) + g[1:]
+                _, m = step(state, x, *g)
+                res[name] = (det_vectors(state), m.double().cpu())
+            (cpu, m_cpu), (card, m_card), (f64, _) = (
+                res['cpu'], res['card'], res['f64'])
+            e = rel_err(m_card, m_cpu)
+            expect(e <= DET_CARD_CPU_TOL['metrics'],
+                   f'detector card vs CPU step {i}: metrics {e}')
+            errs['metrics'] = max(errs['metrics'], e)
+            # gradients against their norm; parameters and momentum
+            # buffers (from one start) against the float64 step's move
+            for key, idx in (('grad', 1), ('param', 0), ('momentum', 2)):
+                err = vec_dist(card, cpu, idx)
+                noise = vec_dist(cpu, f64, idx)
+                scale = vec_dist(f64, None if key == 'grad' else start, idx)
+                errs[f'{key}_card'].append(err / scale)
+                errs[f'{key}_cpu_f64'].append(noise / scale)
+                expect(err <= DET_NOISE * noise + 1e-6 * scale,
+                       f'detector card vs CPU step {i}: {key} '
+                       f'{err / scale:.3g} of its norm, CPU vs float64 '
+                       f'{noise / scale:.3g}')
+            sd_cpu = parts['cpu'][0].model.state_dict()
+            for name, t in parts['card'][0].model.state_dict().items():
+                if 'running' in name:
+                    ref = sd_cpu[name]
+                    scale = (sd_cpu[name.replace('_mean', '_var')].sqrt()
+                             if name.endswith('running_mean') else ref)
+                    e = ((t.cpu() - ref).abs().max()
+                         / scale.abs().max()).item()
+                    expect(e <= DET_CARD_CPU_TOL['stats'],
+                           f'detector card vs CPU step {i}: {name} {e}')
+                    errs['stats'] = max(errs['stats'], e)
+            print(f'detector card vs CPU step {i}: loss {float(m_cpu[0]):.6f}'
+                  f' (CPU) {float(m_card[0]):.6f} (card); stage 2 '
+                  f'{flips} of {n_pos} positives flipped at the threshold; '
+                  f'|card - CPU| / |CPU - f64| of gradients '
+                  f'{errs["grad_card"][-1]:.3g} / '
+                  f'{errs["grad_cpu_f64"][-1]:.3g}, parameter moves '
+                  f'{errs["param_card"][-1]:.3g} / '
+                  f'{errs["param_cpu_f64"][-1]:.3g}, momentum '
+                  f'{errs["momentum_card"][-1]:.3g} / '
+                  f'{errs["momentum_cpu_f64"][-1]:.3g} (of their norms)')
+            # the next step starts from the CPU's state on every device
+            src = parts['cpu'][0]
+            for name in ('card', 'f64'):
+                dst = parts[name][0]
+                with torch.no_grad():
+                    for (_, p), q in zip(dst.model.state_dict().items(),
+                                         src.model.state_dict().values()):
+                        p.copy_(q)
+                    for p, q in zip(dst.optimizer.param_groups[0]['params'],
+                                    src.optimizer.param_groups[0]['params']):
+                        dst.optimizer.state[p]['momentum_buffer'] = \
+                            src.optimizer.state[q]['momentum_buffer'] \
+                            .to(p).clone()
+                        p.copy_(q)
+    expect(int(parts['card'][0].step) == 2, 'detector card vs CPU: step')
+    print(f'detector card vs CPU, cascade w1.0 f32 at batch '
+          f'{DET_CARD_CPU_BATCH}: metrics {errs["metrics"]:.3g}, running '
+          f'statistics {errs["stats"]:.3g}, augmentations {aug_err:.3g} '
+          f'(tolerances {DET_CARD_CPU_TOL}, noise factor {DET_NOISE})')
+    return errs
+
+
+def det_state_copy(state, counter):
+    """Clones of every field ``resume_from`` restores, and the host step
+    counter."""
+    import copy
+    return dict(weights={k: v.detach().clone() for k, v in
+                         state.model.state_dict().items()
+                         if not k.endswith('num_batches_tracked')},
+                optimizer=copy.deepcopy(state.optimizer.state_dict()),
+                balance={k: v.detach().clone()
+                         for k, v in state.balance.items()},
+                step=state.step.clone(), counter=counter)
+
+
+def same_det_state(a, b, what):
+    for k, v in a['weights'].items():
+        expect(torch.equal(v, b['weights'][k]), f'{what}: {k}')
+    sa, sb = a['optimizer']['state'], b['optimizer']['state']
+    expect(sa.keys() == sb.keys() and len(sa) > 0,
+           f'{what}: momentum buffers')
+    for i in sa:
+        expect(torch.equal(sa[i]['momentum_buffer'].cpu(),
+                           sb[i]['momentum_buffer'].cpu()),
+               f'{what}: momentum buffer {i}')
+    for k, v in a['balance'].items():
+        expect(torch.equal(v, b['balance'][k]), f'{what}: balance {k}')
+    expect(torch.equal(a['step'], b['step']), f'{what}: step')
+    expect(a['counter'] == b['counter'], f'{what}: host step counter')
+
+
+def ssd_loss_profile(logits, d1, d2, gt):
+    """``ssd_loss`` forward and backward alone on the step's shapes."""
+    from tpudet3d_torch.detect import generate_anchors, ssd_loss
+    anchors = torch.from_numpy(generate_anchors()).to(logits.device)
+    leaves = [t.detach().clone().requires_grad_() for t in (logits, d1, d2)]
+
+    def call():
+        total, _ = ssd_loss(leaves[0], leaves[1], anchors, *gt,
+                            cascade_deltas=leaves[2], giou_weight=2.0)
+        total.backward()
+    call()
+    prof = kernel_profile(call, AUG_PROFILED)
+    for k in ('busy_ms', 'launches', 'wall_ms'):
+        prof[k] /= AUG_PROFILED
+    return prof
+
+
+def det_step_alone(dev, cfg):
+    """A detector run's step with the augmentations fused in, alone on
+    one loader batch (median, images/s, peak memory, profile), and the
+    loss alone on the cascade's shapes."""
+    from tpudet3d_torch.tools.train_detector import setup
+    run = setup(cfg, dev)
+    imgs, boxes, labels, valid, _ = next(iter(run.train_loader))
+    batch = run.trainer.put_fn(imgs, boxes, labels, valid)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    aug, step, state = run.trainer.augment_fn, run.trainer.train_step, \
+        run.state
+
+    def call():
+        x, b = aug(batch[0], batch[1], gen)
+        return step(state, x, b, *batch[2:])
+    out = step_times(call, DET_BATCH)
+    out['loss'] = None
+    if run.model.cascade:
+        x, b = aug(batch[0], batch[1], gen)
+        with torch.no_grad():
+            logits, (d1, d2) = run.model(x, train=True)
+        out['loss'] = ssd_loss_profile(logits, d1, d2, (b, *batch[2:]))
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def detector_training_path(dev, wrappers, frames_np, gpu):
+    """Phase 10: detector training at full width through
+    ``tools/train_detector.py``'s path; returns its numbers."""
+    import copy
+    import os
+    import tempfile
+
+    import tpudet3d_torch.detect as detect_pkg
+    from tpudet3d_torch.data.selflabel import (generate_selflabel_boxes,
+                                               load_selflabel_boxes)
+    from tpudet3d_torch.data.synthetic_scene import SceneCrops, SyntheticScene
+    from tpudet3d_torch.detect import decode_detections_plain, generate_anchors
+    from tpudet3d_torch.infer import TwoStageEngine, build_engine
+    from tpudet3d_torch.tools.train_detector import setup, validate
+    from tpudet3d_torch.train import current_learning_rate
+    from tpudet3d_torch.utils.checkpoint import resume_from, save_snap
+    decode = wrappers[2]
+    no_launch = [0] * 7
+    k3_only = [0, 0, 1, 0, 0, 0, 0]
+    out = {'launches': {}, 'overrides': DET_OVERRIDES}
+
+    def counted(name, fn, want):
+        res, n = drive(wrappers, fn)
+        out['launches'][name] = n
+        expect(n == want, f'{name}: launches {n}, want {want}')
+        return res
+
+    # 1. the card against the CPU, float32
+    out['card_vs_cpu'] = det_card_against_cpu(dev)
+
+    # 2. the loop: 2 epochs of the flagship cascade config
+    root = tempfile.mkdtemp(prefix='det_')
+    cfg = det_config(root)
+    run = setup(cfg, dev)
+    trainer = run.trainer
+    expect(len(run.train_loader) == DET_STEPS and
+           len(run.val_loader) == DET_VAL_BATCHES,
+           f'loader lengths {len(run.train_loader)}, {len(run.val_loader)}')
+    expect(run.model.cascade and run.model.dtype == torch.bfloat16,
+           'the config did not give a bf16 cascade')
+    steps, puts = [], []
+    inner_step, inner_put = trainer.train_step, trainer.put_fn
+    checked_step = sync_checked(inner_step)
+    trainer.augment_fn = sync_checked(trainer.augment_fn)
+
+    def step(state, *batch):
+        lr = current_learning_rate(state.optimizer)
+        state, m = checked_step(state, *batch)
+        steps.append((trainer.step_counter, lr, m))
+        return state, m
+
+    def put(*arrays):
+        puts.append(time.perf_counter())
+        return inner_put(*arrays)
+    trainer.train_step, trainer.put_fn = step, put
+
+    val_rows = {}
+
+    def add(ev, imgs, boxes, labels, valid):
+        rows = ev.detect(imgs)
+        t0 = time.perf_counter()
+        host = rows.cpu()
+        t1 = time.perf_counter()
+        ev.add_batch(imgs, boxes, labels, valid, dets=host)
+        val_rows.setdefault('wait_s', 0.0)
+        val_rows['wait_s'] += t1 - t0
+        val_rows['match_s'] = val_rows.get('match_s', 0.0) \
+            + time.perf_counter() - t1
+        val_rows.setdefault('first', (imgs, boxes, labels, valid, rows))
+
+    epochs = {}
+    for epoch in range(DET_OVERRIDES['max_epochs']):
+        last = epoch == DET_OVERRIDES['max_epochs'] - 1
+        n_steps, n_puts = len(steps), len(puts)
+        counted(f'det train epoch {epoch}', lambda: trainer.train(epoch, last),
+                no_launch)
+        t_end = time.perf_counter()
+        ep = steps[n_steps:]
+        expect(len(ep) == DET_STEPS, f'epoch {epoch}: {len(ep)} steps')
+        metrics = torch.stack([m for _, _, m in ep]).cpu()
+        expect(bool(torch.isfinite(metrics).all()),
+               f'epoch {epoch}: non-finite metrics')
+        for counter, lr, _ in ep:
+            expect(lr == run.lr_fn(counter),
+                   f'step {counter}: lr {lr}, want {run.lr_fn(counter)}')
+        expect(os.path.isfile(os.path.join(root, f'snap_{epoch}.pt')),
+               f'snap_{epoch}.pt not written')
+        if epoch == 0:
+            after0 = det_state_copy(run.state, trainer.step_counter)
+        val_rows.clear()
+        t0 = time.perf_counter()
+        res = counted(f'det val epoch {epoch}', lambda: validate(
+            run, epoch, add_batch=add), [0, 0, DET_VAL_BATCHES, 0, 0, 0, 0])
+        val_s = time.perf_counter() - t0
+        expect(all(np.isfinite(v) for v in res.values()), 'mAP')
+        epochs[epoch] = dict(
+            loop_s=t_end - puts[n_puts],
+            images_per_s=DET_STEPS * DET_BATCH / (t_end - puts[n_puts]),
+            loss_first=float(metrics[0, 0]), loss_last=float(metrics[-1, 0]),
+            num_pos_mean=float(metrics[:, 3].mean()),
+            lr_last=ep[-1][1], mAP=res['mAP'], val_s=val_s,
+            val_images_per_s=len(run.val_loader.dataset) / val_s,
+            val_match_share=val_rows['match_s'] / val_s,
+            val_wait_share=val_rows['wait_s'] / val_s)
+    out['epochs'] = epochs
+    expect(int(run.state.step) == trainer.step_counter == 2 * DET_STEPS,
+           'step count')
+    after1 = det_state_copy(run.state, trainer.step_counter)
+
+    # one validation batch's K3 rows against the plain version, and the
+    # mAP with that batch's rows through the plain version
+    imgs, boxes, labels, valid, rows = val_rows['first']
+    with torch.no_grad():
+        logits, deltas = run.model(imgs)
+    anchors = torch.from_numpy(generate_anchors()).to(dev)
+    plain = decode_detections_plain(logits, deltas, anchors, score_thr=0.02,
+                                    max_per_img=100, pre_nms_k=200)
+    out['val_k3_err'] = compare_dets(rows, plain, 'K3 detector validation')
+    swapped = []
+
+    def add_plain(ev, *batch):
+        if not swapped:
+            swapped.append(True)
+            return ev.add_batch(*batch, dets=plain)
+        return ev.add_batch(*batch)
+    res_plain = validate(run, 1, add_batch=add_plain)
+    expect(abs(res_plain['mAP'] - epochs[1]['mAP']) <= 1e-9,
+           f'mAP {epochs[1]["mAP"]} through K3, {res_plain["mAP"]} with the '
+           f'plain version on one batch')
+
+    # 4. resume: snap_0 into a fresh run is the state after epoch 0
+    fresh = setup(cfg, dev, resume=os.path.join(root, 'snap_0.pt'))
+    expect(fresh.start_epoch == 1, f'resume: start epoch {fresh.start_epoch}')
+    same_det_state(det_state_copy(fresh.state, fresh.trainer.step_counter),
+                   after0, 'resume from snap_0')
+    t0 = time.perf_counter()
+    resume_from(fresh.state, os.path.join(root, 'snap_1.pt'))
+    out['resume_s'] = time.perf_counter() - t0
+    del fresh
+    t0 = time.perf_counter()
+    save_snap(run.state, 99, tempfile.mkdtemp(prefix='snap_'))
+    out['save_snap_s'] = time.perf_counter() - t0
+
+    # 5. serve the trained detector (no EMA in this config: the weights)
+    engine = build_engine(det_checkpoint=os.path.join(root, 'snap_1.pt'),
+                          det_conf=0.0, device=dev)
+    served = engine.det_model.state_dict()
+    for k, v in after1['weights'].items():
+        expect(torch.equal(served[k], v), f'served {k} is not the trained '
+               f'weight')
+    res = counted('trained detector infer_batch(16)',
+                  lambda: engine.infer_batch(frames_np), [1, 1, 1, 1, 0, 0, 0])
+    check_results(res, *FRAME[:2])
+    memory = TwoStageEngine(copy.deepcopy(run.model), engine.reg_model,
+                            engine.cfg, device=dev)
+    with cudnn_deterministic():
+        same_results(engine.infer_batch(frames_np),
+                     memory.infer_batch(frames_np),
+                     'the trained detector from snap_1.pt against the '
+                     'module in memory')
+    out['served_detections'] = sum(len(r['scores']) for r in res)
+    del engine, memory
+
+    # 6. self-labelling: one K3 launch per batch of 32 scenes
+    scene = SyntheticScene(length=SELFLABEL_SCENES, seed=23)
+    npz = os.path.join(root, 'selflabel.npz')
+    t0 = time.perf_counter()
+    matched, total = counted('self-label', lambda: generate_selflabel_boxes(
+        scene, os.path.join(root, 'snap_1.pt'), npz, device=dev), k3_only)
+    out['selflabel_scenes_per_s'] = SELFLABEL_SCENES / (time.perf_counter()
+                                                        - t0)
+    kernel = detect_pkg.decode_detections
+    detect_pkg.decode_detections = decode_detections_plain
+    try:
+        generate_selflabel_boxes(scene, os.path.join(root, 'snap_1.pt'),
+                                 npz + '.plain.npz', device=dev)
+    finally:
+        detect_pkg.decode_detections = kernel
+    got, ref = np.load(npz), np.load(npz + '.plain.npz')
+    expect(np.array_equal(got['valid'], ref['valid']),
+           'self-label: matched objects differ through the plain K3')
+    out['selflabel_box_err'] = float(np.abs(got['boxes']
+                                            - ref['boxes']).max())
+    # compare_dets' 1e-3 px at 300², in 640×480 frame pixels
+    expect(out['selflabel_box_err'] <= 1e-3 * 640 / 300,
+           f'self-label boxes through the plain K3: '
+           f'{out["selflabel_box_err"]}')
+    boxes_sl, valid_sl = load_selflabel_boxes(npz, scene)
+    crops = SceneCrops(scene, det_boxes=npz, selflabel_p=1.0)
+    items = [crops[i] for i in range(8)]
+    expect(all(it[0].shape == (224, 224, 3) for it in items),
+           'self-labelled crops')
+    out['selflabel'] = dict(matched=matched, objects=total)
+
+    # 7. numbers: the loader alone, a profiled epoch, the step and the
+    # loss alone for both configs
+    t0 = time.perf_counter()
+    n_img = sum(b[0].shape[0] for b in run.train_loader)
+    out['loader_images_per_s'] = n_img / (time.perf_counter() - t0)
+    trainer.train_step, trainer.put_fn = inner_step, inner_put
+    loop = kernel_profile(lambda: trainer.train(2, False), 1)
+    loop['images_per_s'] = DET_STEPS * DET_BATCH / loop['wall_ms'] * 1e3
+    out['profiled_epoch'] = loop
+    del run, trainer
+    torch.cuda.empty_cache()
+    out['step_cascade'] = det_step_alone(dev, cfg)
+    out['step_hard'] = det_step_alone(
+        dev, det_config(tempfile.mkdtemp(prefix='det_hard_'),
+                        DET_HARD_CONFIG))
+    e1, cas, hard = epochs[1], out['step_cascade'], out['step_hard']
+    loss = cas['loss']
+    cc = out['card_vs_cpu']
+    top = ', '.join(f'{g} {t:.2f}'
+                    for g, t in list(cas['groups_ms'].items())[:5])
+    print(f'detector training ({DET_CONFIG}, {DET_OVERRIDES}) on {gpu}: '
+          f'epoch 1 {e1["images_per_s"]:.1f} images/s (loss '
+          f'{e1["loss_first"]:.4f} → {e1["loss_last"]:.4f}, mAP@0.5 '
+          f'{e1["mAP"]:.4f}), loader alone {out["loader_images_per_s"]:.1f} '
+          f'images/s; a profiled epoch {loop["images_per_s"]:.1f} images/s, '
+          f'device busy {loop["busy_ms"]:.1f} of {loop["wall_ms"]:.1f} ms '
+          f'(idle share {loop["idle_share"]:.3f}); validation '
+          f'{e1["val_images_per_s"]:.1f} images/s (host matching '
+          f'{e1["val_match_share"]:.3f} of it); step alone, cascade '
+          f'{cas["step_ms"]:.2f} ms ({cas["images_per_s"]:.1f} images/s, '
+          f'peak {cas["peak_memory_gib"]:.2f} GiB, busy '
+          f'{cas["device_busy_ms"]:.2f} ms, idle share '
+          f'{cas["device_idle_share"]:.3f}, {cas["launches_per_step"]:.0f} '
+          f'launches; by group ms: {top}), synthetic_hard '
+          f'{hard["step_ms"]:.2f} ms ({hard["images_per_s"]:.1f} images/s, '
+          f'peak {hard["peak_memory_gib"]:.2f} GiB); ssd_loss forward and '
+          f'backward {loss["launches"]:.0f} launches, {loss["busy_ms"]:.3f} '
+          f'ms on the device ({loss["wall_ms"]:.2f} wall); save_snap '
+          f'{out["save_snap_s"]:.2f} s, resume_from {out["resume_s"]:.2f} s; '
+          f'self-label {out["selflabel_scenes_per_s"]:.1f} scenes/s '
+          f'({matched}/{total} objects matched); card vs CPU stage-2 flips '
+          f'{cc["stage2_flips"]} of {cc["stage2_pos"]}')
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -2541,6 +3116,13 @@ def run(dev, out_path, iters=20):
     # with K5, snapshots, resume, serving the trained snapshot
     loop = loop_path(dev, wrappers + (iou,) + int8_wrappers, frames_np, gpu)
     done('9 training loop')
+
+    # 10. detector training at full width: the card's step against the
+    # CPU's, the loop with validation through K3, resume, serving and
+    # self-labelling from the trained snapshot
+    det = detector_training_path(dev, wrappers + (iou,) + int8_wrappers,
+                                 frames_np, gpu)
+    done('10 detector training')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -2588,6 +3170,8 @@ def run(dev, out_path, iters=20):
                                training['launches'].items()}
         k['launches_loop'] = {run: n[i] for run, n in
                               loop['launches'].items()}
+        k['launches_det'] = {run: n[i] for run, n in
+                             det['launches'].items()}
         k['launches_int8'] = {name: n[i] for name, n in
                               int8['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
@@ -2629,7 +3213,8 @@ def run(dev, out_path, iters=20):
               f"{k['launches_flagship']['demo loop']} on the demo loop, "
               f"{k['launches_int8']} int8 infer_batch(16), "
               f"{k['launches_train']} on the training path, "
-              f"{k['launches_loop']} on the training loop), max "
+              f"{k['launches_loop']} on the training loop, "
+              f"{k['launches_det']} on detector training), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -2639,7 +3224,8 @@ def run(dev, out_path, iters=20):
                        'serving': times, 'max_det_128': wide,
                        'evaluation': evaluation, 'flagship': flagship,
                        'int8': int8, 'training': training,
-                       'loop': loop, 'phase_s': phase_s,
+                       'loop': loop, 'detector_training': det,
+                       'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)
     print(json.dumps({'ok': True, 'device': {

@@ -149,8 +149,12 @@ def test_scene_cache_and_crops_match_jax(tmp_path):
 
 def test_scene_crops_without_cv2_or_with_det_boxes(monkeypatch):
     scene, _ = _scenes()
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    # train crops load their self-labelled boxes at once, as in the JAX
+    # package (tests/test_torch_port_detect_data.py holds the crops)
+    with pytest.raises(FileNotFoundError):
         synthetic_scene.SceneCrops(scene, det_boxes='boxes.npz')
+    with pytest.raises(FileNotFoundError):
+        jax_scene.SceneCrops(_scenes()[1], det_boxes='boxes.npz')
     # val crops take no self-labelled boxes, as in the JAX package
     synthetic_scene.SceneCrops(scene, mode='val', det_boxes='boxes.npz')
     no_cv2(monkeypatch, synthetic_scene)

@@ -66,6 +66,27 @@ def test_no_silent_cpu_default(monkeypatch, tmp_path):
         train_cli.main(['--config', os.path.join(REPO, 'configs',
                                                  'scene_regressor.py'),
                         '--output_dir', str(tmp_path / 'out')])
+    # detector training and self-labelling: the state, the generator and
+    # both CLIs
+    from tpudet3d_torch.data.selflabel import generate_selflabel_boxes
+    from tpudet3d_torch.data.synthetic_scene import SyntheticScene
+    from tpudet3d_torch.detect import SSDDetector
+    from tpudet3d_torch.detect.train import create_detector_state
+    from tpudet3d_torch.tools import selflabel_boxes, train_detector
+    with pytest.raises(RuntimeError, match='CUDA'):
+        create_detector_state(SSDDetector(width_mult=0.25))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        generate_selflabel_boxes(SyntheticScene(length=1), 'snap_0.pt',
+                                 str(tmp_path / 'boxes.npz'))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_detector.main(['--config', os.path.join(
+            REPO, 'configs', 'detection', 'mnv2_ssd_300_synthetic_hard.py'),
+            '--output_dir', str(tmp_path / 'det')])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        selflabel_boxes.main(['--config', os.path.join(
+            REPO, 'configs', 'scene_regressor_selflabel.py'),
+            '--det_checkpoint', 'snap_0.pt', '--out',
+            str(tmp_path / 'boxes.npz')])
 
 
 def test_source_names_no_jax_import():

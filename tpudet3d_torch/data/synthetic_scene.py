@@ -1,27 +1,31 @@
 """Coherent full-frame synthetic scenes with exact 3D geometry (copy of
-the regressor half of ``tpudet3d/data/synthetic_scene.py``).
+``tpudet3d/data/synthetic_scene.py``).
 
 Each scene is a set of upright 3D boxes standing on one ground plane,
 projected through the default Objectron camera and rendered class-colored
-into the frame.  ``SceneCrops`` cuts regressor items from it with the
-Objectron dataset's crop semantics.  2D keypoints are ``(s_y, s_x)`` of
-the pinhole projection, the portrait convention of the protocol CLI.
-
-``SceneDetection``, ``write_eval_shards`` and the self-labelled crops of
-``det_boxes`` belong to detector training (``ROADMAP.md`` Queue 1 item 2).
-Without cv2 a scene is noise with no object drawn, as in the JAX package,
-and ``SceneCrops`` cannot resize its crops.
+into the frame.  From one sample come the detector's items
+(``SceneDetection``: the frame and the keypoints' 2D extents), the
+regressor's (``SceneCrops``: the Objectron dataset's crop semantics, or
+with ``det_boxes`` the trained detector's own boxes at the engine's deploy
+margin) and the protocol's evaluation shards (``write_eval_shards``:
+``tf.train.Example`` TFRecords).  2D keypoints are ``(s_y, s_x)`` of the
+pinhole projection, the portrait convention of the protocol CLI.  Without
+cv2 a scene is noise with no object drawn, as in the JAX package, and
+``SceneCrops`` cannot resize its crops.
 """
 
 import hashlib
 import os
 import os.path as osp
+import struct
 import tempfile
 
 import numpy as np
 
-from ..core import OBJECTRON_CLASSES
+from ..core import DETECTOR_TO_REGRESSOR_CLS, OBJECTRON_CLASSES
+from ..core.crc32c import tfrecord_frame
 from .dataset import cv2_missing, draw_box, jitter_margins
+from .detection_dataset import MAX_BOXES, _pad_boxes
 
 try:
     import cv2 as cv
@@ -29,7 +33,13 @@ try:
 except ImportError:
     _HAS_CV2 = False
 
-__all__ = ['SyntheticScene', 'SceneCrops']
+__all__ = ['SyntheticScene', 'SceneDetection', 'SceneCrops',
+           'write_eval_shards']
+
+# regressor class id -> detector class id (camera/cereal_box swapped)
+REGRESSOR_TO_DETECTOR_CLS = tuple(
+    DETECTOR_TO_REGRESSOR_CLS.index(i)
+    for i in range(len(DETECTOR_TO_REGRESSOR_CLS)))
 
 # vertex order matching EPNP_ALPHA: x slowest, then y, then z
 _CORNER_SIGNS = np.array([[sx, sy, sz] for sx in (-1, 1)
@@ -212,33 +222,85 @@ class SyntheticScene:
                      thickness)
 
 
+class SceneDetection:
+    """Detector items over SyntheticScene: (img, boxes, labels, valid) with
+    boxes the 2D keypoint extents in input-size pixels, labels in the
+    detector's class order."""
+
+    def __init__(self, scene, input_size=300, max_boxes=MAX_BOXES):
+        self.scene = scene
+        self.input_size = input_size
+        self.max_boxes = max_boxes
+
+    def __len__(self):
+        return len(self.scene)
+
+    def __getitem__(self, idx):
+        s = self.scene.sample(idx)
+        size = self.input_size
+        img = cv.resize(s['img'], (size, size),
+                        interpolation=cv.INTER_LINEAR) if _HAS_CV2 \
+            else np.zeros((size, size, 3), np.uint8)
+        lo = s['kps2d'].min(axis=1) * size                # [N, 2]
+        hi = s['kps2d'].max(axis=1) * size
+        boxes = np.concatenate([lo, hi], axis=1).astype(np.float32)
+        labels = np.asarray([REGRESSOR_TO_DETECTOR_CLS[int(l)]
+                             for l in s['labels']], np.int32)
+        return (img,) + _pad_boxes(boxes, labels, self.max_boxes)
+
+
 class SceneCrops:
     """Regressor items over SyntheticScene: one object per index, GT-box
     ±10 px crop → resize, keypoints in resized-crop pixels.  Train/val
     items are (crop, kps, cat); test items add the original frame and the
     crop coordinates.  Train mode jitters the crop margins
-    (``jitter_margins``), per epoch."""
+    (``jitter_margins``), per epoch.
+
+    With ``det_boxes`` (an npz of ``data/selflabel.py``) a train item
+    crops, with probability ``selflabel_p`` drawn per (seed, index,
+    epoch), from the trained detector's box matched to the object plus
+    ``selflabel_margin`` on every side, clipped to the frame: the engine's
+    deploy geometry.  A box that leaves less than 8 px a side falls back
+    to the ground-truth crop, and the keypoints are clipped into a crop
+    that truncates the object."""
 
     def __init__(self, scene, resize=(224, 224), objects_per_scene=2,
                  mode='train', det_boxes='', selflabel_p=0.5,
                  selflabel_margin=10.0):
-        if det_boxes and mode == 'train':
-            raise NotImplementedError(
-                'self-labelled crops (data.det_boxes) come with detector '
-                'training, ROADMAP.md Queue 1 item 2')
         self.scene = scene
         self.resize = tuple(resize)
         self.objects_per_scene = objects_per_scene
         self.mode = mode
         self._epoch = 0
+        self.selflabel_p = float(selflabel_p)
+        self.selflabel_margin = float(selflabel_margin)
+        self._det_boxes = self._det_valid = None
+        if det_boxes and mode == 'train':
+            from .selflabel import load_selflabel_boxes
+            self._det_boxes, self._det_valid = \
+                load_selflabel_boxes(det_boxes, scene)
 
     def set_epoch(self, epoch):
         """Called by BatchLoader per epoch: varies the train-mode crop
-        jitter deterministically."""
+        jitter and the self-label draws deterministically."""
         self._epoch = int(epoch)
 
     def __len__(self):
         return len(self.scene) * self.objects_per_scene
+
+    def _det_box(self, idx, k):
+        """The matched detector box of object k, drawn with probability
+        ``selflabel_p``, or None."""
+        if self.mode != 'train' or self._det_boxes is None:
+            return None
+        scene_idx = idx // self.objects_per_scene
+        if not self._det_valid[scene_idx, k]:
+            return None
+        draw = np.random.RandomState(
+            (self.scene.seed * 99991 + idx * 31
+             + self._epoch * 7919) & 0x7fffffff).uniform()
+        return self._det_boxes[scene_idx, k] if draw < self.selflabel_p \
+            else None
 
     def __getitem__(self, idx):
         if not _HAS_CV2:
@@ -252,16 +314,35 @@ class SceneCrops:
         clipped = np.stack([np.clip(kps_px[:, 0], 3, w - 3),
                             np.clip(kps_px[:, 1], 3, h - 3)],
                            axis=1).astype(np.float32)
-        if self.mode == 'train':
-            ml, mt, mr, mb = jitter_margins(self.scene.seed, idx, self._epoch)
-        else:
-            ml = mt = mr = mb = 10.0
-        x0 = int(np.clip(clipped[:, 0].min() - ml, 0, w))
-        y0 = int(np.clip(clipped[:, 1].min() - mt, 0, h))
-        x1 = int(np.clip(clipped[:, 0].max() + mr, 0, w))
-        y1 = int(np.clip(clipped[:, 1].max() + mb, 0, h))
+        det_box = self._det_box(idx, k)
+        if det_box is not None:
+            # the engine's deploy geometry: the box and the margin on
+            # every side, clipped to the frame
+            m = self.selflabel_margin
+            x0 = int(np.clip(det_box[0] - m, 0, w))
+            y0 = int(np.clip(det_box[1] - m, 0, h))
+            x1 = int(np.clip(det_box[2] + m, 0, w))
+            y1 = int(np.clip(det_box[3] + m, 0, h))
+            if x1 - x0 < 8 or y1 - y0 < 8:   # degenerate box: GT fallback
+                det_box = None
+        if det_box is None:
+            if self.mode == 'train':
+                ml, mt, mr, mb = jitter_margins(self.scene.seed, idx,
+                                                self._epoch)
+            else:
+                ml = mt = mr = mb = 10.0
+            x0 = int(np.clip(clipped[:, 0].min() - ml, 0, w))
+            y0 = int(np.clip(clipped[:, 1].min() - mt, 0, h))
+            x1 = int(np.clip(clipped[:, 0].max() + mr, 0, w))
+            y1 = int(np.clip(clipped[:, 1].max() + mb, 0, h))
         crop_img = s['img'][y0:y1, x0:x1]
         crop_kps = clipped - np.asarray([x0, y0], np.float32)
+        if det_box is not None:
+            # a detector box may truncate the object: keypoints clipped
+            # into the crop, the best a deployed regressor can predict
+            crop_kps = np.stack(
+                [np.clip(crop_kps[:, 0], 0, x1 - x0),
+                 np.clip(crop_kps[:, 1], 0, y1 - y0)], axis=1)
         th, tw = self.resize
         ch, cw = crop_img.shape[:2]
         resized = cv.resize(crop_img, (tw, th), interpolation=cv.INTER_LINEAR)
@@ -270,3 +351,82 @@ class SceneCrops:
             return (s['img'], resized, out_kps, int(s['labels'][k]),
                     (x0, y0, x1, y1))
         return resized, out_kps, int(s['labels'][k])
+
+
+# --- tf.train.Example wire format (the feature keys the protocol CLI reads)
+
+def _varint(v):
+    out = b''
+    while True:
+        b7 = v & 0x7f
+        v >>= 7
+        out += bytes([b7 | (0x80 if v else 0)])
+        if not v:
+            return out
+
+
+def _feat_bytes(vals):
+    body = b''.join(_varint(1 << 3 | 2) + _varint(len(v)) + v for v in vals)
+    return _varint(1 << 3 | 2) + _varint(len(body)) + body
+
+
+def _feat_floats(vals):
+    packed = b''.join(struct.pack('<f', float(v)) for v in vals)
+    body = _varint(1 << 3 | 2) + _varint(len(packed)) + packed
+    return _varint(2 << 3 | 2) + _varint(len(body)) + body
+
+
+def _feat_ints(vals):
+    body = b''.join(_varint(1 << 3 | 0) + _varint(int(v)) for v in vals)
+    return _varint(3 << 3 | 2) + _varint(len(body)) + body
+
+
+def _example(features):
+    body = b''
+    for name, feat in features.items():
+        entry = _varint(1 << 3 | 2) + _varint(len(name)) + name.encode()
+        entry += _varint(2 << 3 | 2) + _varint(len(feat)) + feat
+        body += _varint(1 << 3 | 2) + _varint(len(entry)) + entry
+    return _varint(1 << 3 | 2) + _varint(len(body)) + body
+
+
+def write_eval_shards(out_dir, classes, per_class=32, frame_hw=(480, 640),
+                      seed=51, min_objects=1, max_objects=3):
+    """Write per-class TFRecord shards (``<out_dir>/<class>/shard-00000``)
+    with the feature keys and types the protocol CLI reads (image/encoded,
+    point_2d, point_3d, instance_num, object/visibility, plane/*), framed
+    with masked CRC32C checksums as ``tf.data.TFRecordDataset`` expects.
+    Byte for byte the JAX package's shards."""
+    if not _HAS_CV2:
+        raise cv2_missing('write_eval_shards (JPEG frames)')
+    for ci, cls in enumerate(classes):
+        cls_id = OBJECTRON_CLASSES.index(cls)
+        scene = SyntheticScene(length=per_class, frame_hw=frame_hw,
+                               seed=seed + 131 * ci, classes=(cls_id,),
+                               min_objects=min_objects,
+                               max_objects=max_objects)
+        cls_dir = osp.join(out_dir, cls)
+        os.makedirs(cls_dir, exist_ok=True)
+        with open(osp.join(cls_dir, 'shard-00000'), 'wb') as f:
+            for i in range(per_class):
+                s = scene.sample(i)
+                ok, enc = cv.imencode('.jpg', s['img'],
+                                      [cv.IMWRITE_JPEG_QUALITY, 95])
+                if not ok:
+                    raise RuntimeError(f'JPEG encoding failed: {cls} {i}')
+                n = len(s['labels'])
+                # point_2d rows are (x, y, depth) triplets in the Objectron
+                # schema; depth is unused by the protocol readers
+                p2 = np.concatenate(
+                    [s['kps2d'], np.zeros((n, 9, 1), np.float32)], axis=-1)
+                ex = _example({
+                    'image/encoded': _feat_bytes([enc.tobytes()]),
+                    'point_2d': _feat_floats(p2.reshape(-1).tolist()),
+                    'point_3d': _feat_floats(
+                        s['kps3d'].reshape(-1).tolist()),
+                    'instance_num': _feat_ints([n]),
+                    'object/visibility': _feat_floats([1.0] * n),
+                    'plane/center': _feat_floats(s['plane'][0].tolist()),
+                    'plane/normal': _feat_floats(s['plane'][1].tolist()),
+                })
+                f.write(tfrecord_frame(ex))

@@ -1,4 +1,4 @@
-"""MobileNetV2-SSD-300 with 2 heads at inference (counterpart of
+"""MobileNetV2-SSD-300 with 2 heads (counterpart of
 ``tpudet3d/detect/ssd.py``).
 
 MNv2 trunk features at strides 16/32, depthwise prediction heads (3x3 DW
@@ -7,6 +7,9 @@ with a background class (index == num_classes).  ``cascade=True`` adds a
 second regression head per level whose residual refines the first head's
 decoded boxes; the composed box is re-encoded against the original anchors,
 so every consumer of ``(logits, deltas)`` gets the refinement unchanged.
+Training mode is the explicit ``train`` argument (batch statistics in every
+batch norm); a cascade model in training returns the two stages' raw deltas
+for the loss.
 """
 
 import torch
@@ -30,16 +33,18 @@ class _DepthwiseHead(nn.Module):
                                groups=in_channels, act=F.relu)
         self.Conv_0 = nn.Conv2d(in_channels, num_anchors * out_per_anchor, 1)
 
-    def forward(self, x):
-        y = conv(self.ConvBN_0(x), self.Conv_0)          # [B, k*out, H, W]
+    def forward(self, x, train=False):
+        y = conv(self.ConvBN_0(x, train), self.Conv_0)          # [B, k*out, H, W]
         b = y.shape[0]
         return y.permute(0, 2, 3, 1).reshape(b, -1, self.out_per_anchor)
 
 
 class SSDDetector(nn.Module):
-    """``forward(x)``: NHWC ``[B,S,S,3]`` → (cls_logits ``[B,A,C+1]``,
-    bbox_deltas ``[B,A,4]``), both float32.  ``dtype`` is the compute dtype
-    of the trunk and heads."""
+    """``forward(x, train=False)``: NHWC ``[B,S,S,3]`` → (cls_logits
+    ``[B,A,C+1]``, bbox_deltas ``[B,A,4]``), both float32; with ``cascade``
+    and ``train=True`` the second element is ``(deltas_stage1,
+    deltas_stage2)``.  ``dtype`` is the compute dtype of the trunk and
+    heads."""
 
     def __init__(self, num_classes=9, width_mult=1.0, dtype=torch.float32,
                  cascade=False):
@@ -60,8 +65,8 @@ class SSDDetector(nn.Module):
         self.n_levels = len(ks)
         self._anchors = {}
 
-    def _heads(self, kind, feats):
-        return torch.cat([getattr(self, f'{kind}_{i}')(f).float()
+    def _heads(self, kind, feats, train):
+        return torch.cat([getattr(self, f'{kind}_{i}')(f, train).float()
                           for i, f in enumerate(feats)], dim=1)
 
     def anchors(self, input_size, device):
@@ -71,15 +76,17 @@ class SSDDetector(nn.Module):
                 generate_anchors(input_size)).to(device)
         return self._anchors[key]
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         size = x.shape[1]
         x = x.to(self.dtype).permute(0, 3, 1, 2)    # channels_last view
-        feats = self.backbone(x)
-        logits = self._heads('cls_heads', feats)
-        d1 = self._heads('reg_heads', feats)
+        feats = self.backbone(x, train)
+        logits = self._heads('cls_heads', feats, train)
+        d1 = self._heads('reg_heads', feats, train)
         if not self.cascade:
             return logits, d1
-        d2 = self._heads('reg2_heads', feats)
+        d2 = self._heads('reg2_heads', feats, train)
+        if train:
+            return logits, (d1, d2)
         # anchors → refined (stage 1) → final (stage 2), re-encoded against
         # the original anchors (encode∘decode is exact inside the clip)
         anchors = self.anchors(size, x.device)

@@ -75,12 +75,12 @@ class MobileNetV2(nn.Module):
             make_divisible(MNV2_CFG[i][1] * width_mult, 8)
             for i in self.out_stages)
 
-    def forward(self, x):
-        x = self.ConvBN_0(x)
+    def forward(self, x, train=False):
+        x = self.ConvBN_0(x, train)
         outs = []
         ends = {self.stage_ends[i] for i in self.out_stages}
         for b in range(self.n_blocks):
-            x = getattr(self, f'_MBConv_{b}')(x)
+            x = getattr(self, f'_MBConv_{b}')(x, train)
             if b in ends:
                 outs.append(x)
         return tuple(outs)

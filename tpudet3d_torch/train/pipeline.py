@@ -25,20 +25,25 @@ __all__ = ['TrainingPipeline', 'setup_training', 'HostToDevice',
 
 
 class HostToDevice:
-    """``put(imgs, kps, cats)``: a numpy batch → (uint8 images, float32
-    keypoints, int64 categories) on ``device``.  On the card the arrays go
-    through pinned host buffers, two sets used in turns, by non-blocking
-    copies; before a set is written again the host waits on the event
-    recorded after its last copy (long done by then)."""
+    """``put(*arrays)``: a numpy batch → tensors on ``device``, each array
+    cast to its entry of ``dtypes`` (None keeps it): by default (uint8
+    images, float32 keypoints, int64 categories).  On the card the arrays
+    go through pinned host buffers, two sets used in turns, by
+    non-blocking copies; before a set is written again the host waits on
+    the event recorded after its last copy (long done by then)."""
 
-    def __init__(self, device):
+    def __init__(self, device, dtypes=(None, np.float32, np.int64)):
         self.device = torch.device(device)
+        self.dtypes = tuple(dtypes)
         self.slots = [None, None]   # (pinned tensors, event) per set
         self.n = 0
 
-    def __call__(self, imgs, kps, cats):
-        arrays = (np.asarray(imgs), np.asarray(kps, np.float32),
-                  np.asarray(cats, np.int64))
+    def __call__(self, *arrays):
+        if len(arrays) != len(self.dtypes):
+            raise ValueError(f'expected {len(self.dtypes)} arrays, got '
+                             f'{len(arrays)}')
+        arrays = tuple(np.asarray(a) if d is None else np.asarray(a, d)
+                       for a, d in zip(arrays, self.dtypes))
         if self.device.type != 'cuda':
             return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
         k = self.n % 2

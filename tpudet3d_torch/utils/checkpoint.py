@@ -10,8 +10,9 @@ directory, by ``scripts/snapshot_to_torch.py``: a plain dict
 
 where each ``state_dict`` (``utils/convert.py`` keys) carries the batch
 statistics too.  A training snapshot adds what resuming needs:
-``optimizer`` (the optimizer's ``state_dict``), ``alwa`` (the ALWA state,
-name → tensor) and ``step``.  Every value is a tensor or a Python
+``optimizer`` (the optimizer's ``state_dict``: Adam's moments, SGD's
+momentum buffers), ``step``, and ``alwa`` (the regressor's ALWA state,
+name → tensor) or ``balance`` (the detector's loss-balancing pair).  Every value is a tensor or a Python
 primitive, so ``torch.load(weights_only=True)`` reads it.  Which of the
 two weight sets to serve is decided at load time (``detect/load.py``,
 ``infer/build.py``).
@@ -149,21 +150,32 @@ def _model_weights(model):
             if not k.endswith('num_batches_tracked')}
 
 
+def _kind(state):
+    """A detector train state (``detect/train.py``) carries the balance
+    pair, a regressor's (``train/state.py``) the ALWA state."""
+    return 'detector' if hasattr(state, 'balance') else 'regressor'
+
+
 def save_snap(state, epoch, log_path):
     """Write ``snap_{epoch}.pt`` in ``log_path``: the weights, the EMA
-    (with the same batch statistics), the optimizer, ALWA and step."""
+    (with the same batch statistics), the optimizer, step, and ALWA (a
+    regressor's state) or the balance pair (a detector's)."""
     path = converted_path(snapshot_path(log_path, epoch))
     print(f'==> saving checkpoint to {path}')
     params = _cpu(_model_weights(state.model))
     ema = None
     if state.ema_params is not None:
         ema = dict(params, **_cpu(state.ema_params))
-    alwa = {f.name: _cpu(getattr(state.alwa, f.name))
-            for f in dataclasses.fields(state.alwa)}
+    kind = _kind(state)
+    if kind == 'detector':
+        extra = {'balance': {k: _cpu(v) for k, v in state.balance.items()}}
+    else:
+        extra = {'alwa': {f.name: _cpu(getattr(state.alwa, f.name))
+                          for f in dataclasses.fields(state.alwa)}}
     os.makedirs(log_path, exist_ok=True)
-    return save_converted(path, 'regressor', epoch, params, ema,
+    return save_converted(path, kind, epoch, params, ema,
                           optimizer=_cpu(state.optimizer.state_dict()),
-                          alwa=alwa, step=_cpu(state.step))
+                          step=_cpu(state.step), **extra)
 
 
 def merge_matching(target, source):
@@ -209,8 +221,13 @@ def _restore_full(state, snap):
     load_state_dict_strict(state.model, snap['params'])
     state.optimizer.load_state_dict(snap['optimizer'])
     dev = state.step.device
-    for name, value in snap['alwa'].items():
-        getattr(state.alwa, name).copy_(value.to(dev))
+    with torch.no_grad():
+        if _kind(state) == 'detector':
+            for name, value in snap['balance'].items():
+                state.balance[name].copy_(value.to(dev))
+        else:
+            for name, value in snap['alwa'].items():
+                getattr(state.alwa, name).copy_(value.to(dev))
     state.step.copy_(snap['step'].to(dev))
     toggled = (state.ema_params is None) != (snap['ema_params'] is None)
     if state.ema_params is not None:
@@ -226,22 +243,27 @@ def resume_from(state, chkpt_path):
     start_epoch)`` with ``start_epoch`` the saved epoch + 1.
 
     A training snapshot of the same model restores fully: weights,
-    statistics, optimizer, ALWA, step and EMA.  Where the config keeps an
-    EMA and the snapshot has none, the average starts from the restored
-    weights; where the snapshot has one and the config none, it is
-    dropped.  Anything else (a snapshot converted from the JAX package,
-    another head) restores tolerantly: weights, statistics and EMA by name
-    and shape, the optimizer and ALWA left fresh, both reported."""
+    statistics, optimizer, step, EMA, and ALWA (a regressor) or the
+    balance pair (a detector).  Where the config keeps an EMA and the
+    snapshot has none, the average starts from the restored weights; where
+    the snapshot has one and the config none, it is dropped.  Anything
+    else (a snapshot converted from the JAX package, another head)
+    restores tolerantly: weights, statistics and EMA by name and shape,
+    the optimizer and ALWA or balance left fresh, both reported.  A
+    snapshot of the other kind (a regressor's into a detector's state, or
+    the reverse) is refused."""
     path = resolve_converted(chkpt_path)
     print(f'Loading checkpoint from "{path}"')
-    snap = load_converted(path, kind='regressor')
+    kind = _kind(state)
+    snap = load_converted(path, kind=kind)
     start_epoch = int(snap.get('epoch', -1)) + 1
     try:
         toggled = _restore_full(state, snap)
     except (KeyError, ValueError, RuntimeError) as e:
+        fresh = 'balance' if kind == 'detector' else 'ALWA'
         print(f'Full state restore failed ({type(e).__name__}); falling '
-              'back to weight+stats restore (optimizer and ALWA state not '
-              'restored)')
+              f'back to weight+stats restore (optimizer and {fresh} state '
+              f'not restored)')
     else:
         print('Loaded full train state' + (
             ' (ema_params toggled to match the config)' if toggled else '')

@@ -20,7 +20,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ['jax_to_state_dict', 'load_jax_variables', 'load_state_dict_strict']
+__all__ = ['jax_to_state_dict', 'load_jax_variables', 'load_state_dict_strict',
+           'load_jax_detector_state']
 
 _LEAF = {
     ('params', 'scale'): 'weight',
@@ -93,3 +94,49 @@ def load_jax_variables(module, variables):
     """Load converted JAX variables into ``module`` strictly
     (:func:`load_state_dict_strict`)."""
     return load_state_dict_strict(module, jax_to_state_dict(variables))
+
+
+def _sgd_trace(opt_state):
+    """The ``trace`` tree of optax's momentum inside a (possibly nested,
+    possibly hyperparameter-injected) optimizer state, or None."""
+    trace = getattr(opt_state, 'trace', None)
+    if isinstance(trace, Mapping):       # optax's TraceState, not ndarray's
+        return trace
+    children = (opt_state if isinstance(opt_state, (tuple, list))
+                else [getattr(opt_state, 'inner_state', None)])
+    for child in children:
+        if child is not None:
+            found = _sgd_trace(child)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_detector_state(state, jax_state):
+    """Carry a JAX ``DetTrainState`` (its leaves on the host, e.g. through
+    ``jax.device_get``) into the port's ``DetTrainState`` in place: the
+    weights and batch statistics by the key mapping above, ``balance``,
+    the SGD momentum (optax's ``trace``) as each parameter's
+    ``momentum_buffer``, ``step`` and, where both keep one, the EMA."""
+    load_jax_variables(state.model, {'params': jax_state.params,
+                                     'batch_stats': jax_state.batch_stats})
+    dev = state.step.device
+    with torch.no_grad():
+        for k, p in state.balance.items():
+            p.copy_(torch.tensor(np.asarray(jax_state.balance[k],
+                                            np.float32)))
+        state.step.fill_(int(np.asarray(jax_state.step)))
+        trace = _sgd_trace(jax_state.opt_state)
+        if trace is not None:
+            buffers = jax_to_state_dict({'params': trace['model']})
+            for k, p in state.model.named_parameters():
+                state.optimizer.state[p]['momentum_buffer'] = \
+                    buffers[k].to(p)
+            for k, p in state.balance.items():
+                state.optimizer.state[p]['momentum_buffer'] = torch.tensor(
+                    np.asarray(trace['balance'][k], np.float32)).to(p)
+        ema = getattr(jax_state, 'ema_params', None)
+        if ema is not None and state.ema_params is not None:
+            for k, v in jax_to_state_dict({'params': ema}).items():
+                state.ema_params[k].copy_(v)
+    return state
