@@ -119,6 +119,38 @@ Phases, each fatal on failure:
    the step alone for the cascade and ``mnv2_ssd_300_synthetic_hard.py``
    and the loss alone (launches, device ms).
 
+11. The last modules at full width: (a) seeded checkpoints laid out to
+   the timm ``mobilenetv3_large_100`` 21k contract and the
+   efficientnet-lite0 contract vetted by ``tools/check_pretrained.py`` (a
+   drifted one refused), ``setup_training(configs/default_config.py)``
+   loading the 21k file bit for bit, its load seconds, 10 bf16 steps at
+   batch 128 with a falling loss; (b) el0 bf16 at batch 128 under an NCCL
+   group of one process against no group (step ms; 3 f32 steps bit for
+   bit under cuDNN's deterministic algorithms; a validation with the IoU
+   on keypoints that overlap their ground truth: 2 K5 launches, the
+   averages as without the group and through the plain K5); (c) the
+   cascade config at batch 64 through
+   ``tools/train_detector.py``'s ``setup`` under the group (one epoch of
+   256 items, a validation with its K3 launches and the mAP as without
+   the group); two gloo processes on cuda:0 (NCCL refuses two ranks on
+   one device) at 2×32 el0 rows and 2×8 cascade rows, float32, against
+   one process over the same rows: the loss at step 0 within 1e-4, over
+   the steps within 5e-2, the update at step 1 within 5e-2 of its norm
+   and the parameters within a leaf-wise 5e-2, running statistics, ALWA
+   and EMA equal on both ranks; ``Evaluator.val`` over both ranks within
+   1e-6 of one process fed the same batches, rank 0's ``save_snap`` at a barrier resumed on
+   both, ``DetectorEvaluator``'s mAP over both ranks' detections equal to
+   one process's over them; (d)
+   ``build_engine()`` over 16 720p frames unsharded, ``shard(['cuda:0'])``
+   and ``shard(['cuda:0', 'cuda:0'])``: rows bit for bit against the
+   unsharded ``infer_batch(16)`` (two replicas also against its two
+   slices), K1–K4 once a slice, N=3
+   refused, frames/s of each, K1–K4 at a slice's shapes against their
+   plain versions; (e) ``tools/get_complexity.py`` on MNv3 and el0,
+   ``utils/profiling.trace`` around a serving call naming K1–K4's
+   kernels, ``tools/optuna_optim.py`` for 2 trials of 1 epoch at batch
+   128 on synthetic items.
+
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is unavailable or any phase fails.
@@ -2991,14 +3023,812 @@ def detector_training_path(dev, wrappers, frames_np, gpu):
     return out
 
 
+# phase 11: the last modules at full width.  Reference checkpoints laid out
+# to the published contracts (seeded random values: the published files
+# are not in the repository), data parallelism under process groups, sharded
+# serving, and the tools (complexity, profiling, the HPO sweep)
+PRETRAINED_CASES = (('mobilenetv3_large_21k', 'timm', 11221),
+                    ('efficientnet-lite0', 'lite', None))
+IMPORT_STEPS = 10
+DP_BATCH = (64, 16)              # the comparison's global batches
+DP_REG_STEPS, DP_DET_STEPS, DP_TIMED = 2, 3, 5
+DP_VAL_BATCHES = 2
+DP_DET_OVERRIDES = dict(synthetic_length=256, max_epochs=1)
+SHARD_CALLS = 10
+OPTUNA_ARGS = ('-e', '1', '--n_trials', '2', '--n_training_iterations',
+               '0.25', '--n_validate_iterations', '0.5', '--disable_store_log')
+K1_K4_NAMES = ('resize_tiled_u8_kernel', 'crop_band_kernel',
+               'decode_nms_kernel', 'head_epilogue_kernel')
+
+
+def seeded_state_dict(contract, seed):
+    """Random tensors laid out exactly as ``contract`` (keys, shapes and
+    order), from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, shape in contract:
+        if key.endswith('num_batches_tracked'):
+            sd[key] = torch.tensor(10, dtype=torch.int64)
+        elif key.endswith('running_var'):
+            sd[key] = torch.rand(shape, generator=g) + 0.5
+        else:
+            sd[key] = torch.randn(shape, generator=g) * 0.05
+    return sd
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn``'s result and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def reference_import(dev, tmp, gpu):
+    """11a: seeded checkpoints to the timm-21k and lite0 contracts vetted by
+    ``tools/check_pretrained.py`` (a drifted one refused),
+    ``setup_training(configs/default_config.py)`` loading the 21k file bit
+    for bit, then IMPORT_STEPS bf16 steps at batch TRAIN_BATCH."""
+    import os
+
+    from tpudet3d_torch.core.config import read_py_config
+    from tpudet3d_torch.models import build_model
+    from tpudet3d_torch.tools import check_pretrained
+    from tpudet3d_torch.train import make_train_step
+    from tpudet3d_torch.train.pipeline import setup_training
+    from tpudet3d_torch.utils.torch_import import load_torch_checkpoint_into
+    paths = {}
+    for i, (model, kind, nc) in enumerate(PRETRAINED_CASES):
+        contract = check_pretrained.get_contract(model, kind, nc)
+        paths[model] = os.path.join(tmp, f'{model}.pth')
+        torch.save({'state_dict': seeded_state_dict(contract, i)},
+                   paths[model])
+        code, text = quiet(check_pretrained.main, ['--model', model,
+                                                   '--ckpt', paths[model]])
+        expect(code == 0 and 'strict import: OK' in text,
+               f'check_pretrained refused the {model} checkpoint:\n{text}')
+    drifted = seeded_state_dict(check_pretrained.get_contract(
+        'efficientnet-lite0', 'lite', None), 9)
+    drifted['_conv_head.weight'] = torch.zeros(1280, 328, 1, 1)
+    bad = os.path.join(tmp, 'drifted.pth')
+    torch.save({'state_dict': drifted}, bad)
+    code, text = quiet(check_pretrained.main, ['--model',
+                                               'efficientnet-lite0',
+                                               '--ckpt', bad])
+    expect(code == 1 and 'MISMATCH' in text,
+           f'check_pretrained passed a drifted checkpoint:\n{text}')
+
+    os.environ['TPUDET3D_PRETRAINED_DIR'] = tmp
+    cfg = read_py_config('configs/default_config.py')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe, text = quiet(setup_training, cfg, device=dev, with_loaders=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    expect('torch import: matched' in text, f'no import:\n{text}')
+    seed = int(cfg.utils.random_seeds or 5)
+    ref = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    report = {}
+    quiet(load_torch_checkpoint_into, ref, paths['mobilenetv3_large_21k'],
+          report=report)
+    own = pipe.state.model.state_dict()
+    for k, v in ref.state_dict().items():
+        expect(torch.equal(own[k].cpu(), v), f'imported {k} differs')
+    fresh = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    fresh = fresh.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quiet(load_torch_checkpoint_into, fresh, paths['mobilenetv3_large_21k'])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del fresh
+
+    state = pipe.state
+    step = make_train_step(state.model, state.loss_manager, state.optimizer,
+                           ema_decay=state.ema_decay)
+    batch = train_batch(cfg, TRAIN_BATCH, dev, seed=11)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+    for _ in range(IMPORT_STEPS):
+        state, m = step(state, *batch, gen)
+        losses.append(m[0])
+    losses = torch.stack(losses).float().cpu().tolist()
+    expect(all(np.isfinite(losses)), f'imported run: losses {losses}')
+    expect(losses[-1] < losses[0], f'imported run: loss did not fall '
+           f'{losses}')
+    print(f'phase 11a reference import on {gpu}: 21k and lite0 vetted, drift '
+          f'refused; {report["matched"]} tensors matched, '
+          f'{len(report["leftovers"])} left over {report["leftovers"]}; '
+          f'load {load_s:.3f} s (setup_training {setup_s:.3f} s); bf16 '
+          f'batch {TRAIN_BATCH} losses {losses[0]:.4f} -> {losses[-1]:.4f}')
+    del pipe, state, step, batch
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, setup_s=setup_s, losses=losses,
+                matched=report['matched'], leftovers=report['leftovers'])
+
+
+def dp_config(sgd=True):
+    """el0 with its EMA in float32; for the comparisons SGD at the
+    config's learning rate, 1e-3, as JAX's equivalence test (SGD's update
+    is linear in the gradient: Adam's first is about lr·sign(g)), and ALWA
+    firing at step 1."""
+    from tpudet3d_torch.core.config import read_py_config
+    cfg = read_py_config(EL0_CONFIG)
+    cfg.model.bf16 = False
+    if sgd:
+        cfg.optim.name = 'sgd'
+        cfg.loss.coeffs = ([1., .1], [1.])    # ALWA's first coefficients
+        cfg.loss.alwa.update(use=True, C=1, compute_std=False)
+    return cfg
+
+
+def group_config(port, world, rank):
+    from tpudet3d_torch.core.config import AttrDict
+    return AttrDict(data_parallel=dict(
+        use_parallel=True, coordinator_address=f'127.0.0.1:{port}',
+        num_processes=world, process_id=rank))
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def group_main(rank, world, port, device, backend, work, args, out):
+    """One process of a local group of ``world``: joins it through
+    ``backend`` on ``device`` (``{rank}`` stands for the rank), runs
+    ``work(dev, world, rank, *args)`` and saves what it returns to ``out``
+    (``{rank}`` likewise)."""
+    from tpudet3d_torch.parallel import sharding
+    dev = sharding.maybe_init_distributed(group_config(port, world, rank),
+                                          device.format(rank=rank),
+                                          backend=backend)
+    try:
+        torch.save(work(dev, world, rank, *args), out.format(rank=rank))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_group(world, backend, device, work, args, tmp, timeout):
+    """Each rank's result of ``work`` (a module-level function, see
+    :func:`group_main`) in a group of ``world`` spawned processes; fails
+    when a process fails or outlives ``timeout`` seconds, and leaves none
+    running.  ``device``: ``'cuda:0'`` for gloo on one card (NCCL refuses
+    two ranks on one device), ``'cuda:{rank}'`` for nccl, ``'cpu'``."""
+    import os
+    ctx = torch.multiprocessing.get_context('spawn')
+    port = free_port()
+    out = os.path.join(str(tmp), f'group_{world}_{{rank}}.pt')
+    procs = [ctx.Process(target=group_main,
+                         args=(r, world, port, device, backend, work,
+                               tuple(args), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    codes = [p.exitcode for p in procs]
+    expect(codes == [0] * world, f'{backend} group of {world}: processes '
+           f'exited {codes}')
+    return [torch.load(out.format(rank=r), weights_only=False)
+            for r in range(world)]
+
+
+def overlapping_evaluator(state, eval_step, cfg, dev, n, seed,
+                          parts=(slice(None),)):
+    """An ``Evaluator`` with the IoU over DP_VAL_BATCHES batches of ``n``,
+    each fed as one batch a slice of ``parts`` (a rank's rows, or a whole
+    batch cut as the ranks cut it), whose keypoints overlap their ground
+    truth, so that K5 clips real polygons: the EMA's heads are set as in
+    the CPU tests, each class's bias to one projected box and the kernel
+    scaled by 0.05 (the images move the box a little), and the ground
+    truth is that box jittered by about a pixel."""
+    from types import SimpleNamespace
+
+    from tpudet3d_torch.data.transforms import build_augmentations
+    from tpudet3d_torch.eval.evaluator import Evaluator
+    from tpudet3d_torch.train import eval_params
+    from tpudet3d_torch.train.pipeline import HostToDevice
+    params = dict(eval_params(state))
+    boxes = projected_box_keypoints(9, seed=9)
+    params['head_bias'] = torch.from_numpy(np.log(boxes / (1 - boxes))
+                                           .reshape(9, 18)).to(dev)
+    params['head_kernel'] = params['head_kernel'] * 0.05
+    rng = np.random.RandomState(seed)
+    h, w = cfg.data.resize
+    batches = []
+    for _ in range(DP_VAL_BATCHES):
+        imgs = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+        cats = rng.randint(0, 9, n)
+        kp = np.clip(boxes[cats] + rng.normal(0, 0.004, (n, 9, 2)), 0, 1)
+        kp = (kp * np.float32([w, h])).astype(np.float32)
+        for rows in parts:
+            mine = imgs[rows]
+            batches.append((mine, kp[rows], cats[rows], mine.shape[0]))
+    return Evaluator(eval_step=eval_step,
+                     state_fn=lambda: SimpleNamespace(ema_params=params),
+                     val_loader=batches, test_loader=None,
+                     test_transform=build_augmentations(cfg)[1],
+                     put_fn=HostToDevice(dev))
+
+
+def dp_work(dev, world, rank, tmp, split=1):
+    """The comparison's work in this process, on the rows ``rank::world``
+    of each global batch (DP_BATCH): DP_REG_STEPS float32 el0 steps
+    (dropout from the shared generator), ``Evaluator.val`` over every
+    rank (with ``split`` > 1 also over each batch fed as ``split``
+    batches, as that many ranks feed it), rank 0's snapshot at a barrier
+    and every rank's ``resume_from`` of it; DP_DET_STEPS cascade steps
+    (the augmentations' draws too) and ``DetectorEvaluator``'s mAP over
+    every rank's detections; the results on the host."""
+    import os
+
+    from tpudet3d_torch.data.det_transforms import (
+        DetectorAugmentations, build_detector_augmentations)
+    from tpudet3d_torch.detect import DetectorEvaluator
+    from tpudet3d_torch.parallel import sharding
+    from tpudet3d_torch.utils.checkpoint import (resume_from, save_snap,
+                                                 snapshot_path)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dp_config()
+    state, step, eval_step = train_parts(cfg, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = dict(reg_metrics=[], reg_params_0={
+        k: p.detach().to('cpu', copy=True)
+        for k, p in state.model.named_parameters()})
+    mine = slice(rank, None, world)
+    with cudnn_deterministic():
+        for i in range(DP_REG_STEPS):
+            batch = train_batch(cfg, DP_BATCH[0], 'cpu', seed=5 + i)
+            rows = [t[mine].to(dev) for t in batch]
+            state, m = step(state, *rows, gen)
+            out['reg_metrics'].append(m.cpu())
+            if i == 0:
+                out['reg_params_1'] = {k: p.detach().to('cpu', copy=True)
+                                       for k, p in
+                                       state.model.named_parameters()}
+        if dev.type == 'cuda':
+            out.update(dp_step_times(state, step, rows, gen))
+        out['reg_stats'] = {k: v.cpu() for k, v in
+                            state.model.state_dict().items() if 'running' in k}
+        out['reg_alwa'] = {k: v.cpu() for k, v in vars(state.alwa).items()}
+        out['reg_ema'] = {k: v.cpu() for k, v in state.ema_params.items()}
+        # Evaluator.val of the trained state, and of a seeded one whose
+        # weights every run shares, so that its sums through the group
+        # can be held against one process's over the same batches
+        fresh, _, fresh_eval = train_parts(cfg, dev, seed=1)
+        evals = [('reg_val', fresh, fresh_eval, [mine]),
+                 ('reg_val_trained', state, eval_step, [mine])]
+        if split > 1:
+            evals.append(('reg_val_split', fresh, fresh_eval,
+                          [slice(r, None, split) for r in range(split)]))
+        for key, st, ev_step, parts in evals:
+            ev = overlapping_evaluator(st, ev_step, cfg, dev, DP_BATCH[0],
+                                       seed=17, parts=parts)
+            out[key] = np.asarray(quiet(ev.val, compute_iou=True)[0])
+        snaps = os.path.join(tmp, f'snaps_{world}')
+        if sharding.is_main_process():
+            quiet(save_snap, state, 0, snaps)
+        sharding.barrier()
+        quiet(resume_from, fresh, snapshot_path(snaps, 0))
+        out['resumed'] = all(
+            torch.equal(p, q) for p, q in zip(
+                list(fresh.model.state_dict().values())
+                + list(fresh.ema_params.values())
+                + list(vars(fresh.alwa).values()),
+                list(state.model.state_dict().values())
+                + list(state.ema_params.values())
+                + list(vars(state.alwa).values())))
+        del rows, state, step, fresh, ev
+        dstate, dstep = det_parts(dev, torch.float32, 0.01)
+        aug = DetectorAugmentations(flip_p=0.5, rot_p=0.5)
+        dgen = torch.Generator(device=dev).manual_seed(1)
+        m_det = DP_BATCH[1]
+        items = det_items(m_det * DP_DET_STEPS, seed=3)
+        out['det_metrics'] = []
+        for i in range(DP_DET_STEPS):
+            lo = i * m_det
+            imgs, boxes, labels, valid = (
+                torch.from_numpy(a[lo:lo + m_det][mine]).to(dev)
+                for a in items)
+            imgs, boxes = aug(imgs, boxes.float(), dgen)
+            dstate, m = dstep(dstate, imgs, boxes, labels.long(), valid)
+            out['det_metrics'].append(m.cpu())
+        out['det_stats'] = {k: v.cpu() for k, v in
+                            dstate.model.state_dict().items()
+                            if 'running' in k}
+        # the detections of this process's images, scored over every
+        # rank's
+        test_aug = build_detector_augmentations(train=False)
+        det_ev = DetectorEvaluator(dstate.model, params=dstate.ema_params)
+        items = det_items(m_det * DP_VAL_BATCHES, seed=9)
+        out['det_dets'] = []
+        for lo in range(0, m_det * DP_VAL_BATCHES, m_det):
+            imgs, boxes, labels, valid = (a[lo:lo + m_det][mine]
+                                          for a in items)
+            imgs_d, _ = test_aug(torch.from_numpy(imgs).to(dev), None)
+            dets = det_ev.detect(imgs_d)
+            det_ev.add_batch(None, boxes, labels, valid, dets=dets)
+            out['det_dets'].append(dets.cpu())
+        out['det_map'] = det_map(det_ev)
+    return out
+
+
+def det_map(evaluator):
+    """Each class's AP and the mAP of ``evaluator.results()``."""
+    res = evaluator.results()
+    return np.asarray([res[c] for c in range(9)] + [res['mAP']])
+
+
+def dp_step_times(state, step, rows, gen):
+    """The el0 step's time on this process's rows (CUDA events; gloo's
+    collectives stage through the host), and what holds a step: the
+    device's busy time, launches and the host's wall time (nccl's and
+    gloo's own kernels included)."""
+    times = []
+    for _ in range(DP_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(state, *rows, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    prof = kernel_profile(lambda: step(state, *rows, gen), 2)
+    return dict(reg_step_ms=sorted(times)[len(times) // 2],
+                reg_profile={k: prof[k] for k in ('busy_ms', 'launches',
+                                                  'wall_ms', 'groups')})
+
+
+def max_leaf_err(a, b):
+    """Largest leaf-wise |a - b| / max(|b|, 1e-3) (JAX's bound's measure)
+    and its leaf."""
+    return max((float(((a[k].double() - b[k].double()).abs()
+                       / b[k].double().abs().clamp(min=1e-3)).max()), k)
+               for k in b)
+
+
+def update_err(a, b, start, keys=None):
+    """|Δa − Δb| / |Δb| over the tensors ``keys`` (all), Δ the move from
+    ``start``: the distance of two updates, whatever the learning rate."""
+    keys = list(b) if keys is None else keys
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+              for k in keys)
+    den = sum(float(((b[k].double() - start[k].double()) ** 2).sum())
+              for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dp_validation(dev, parts, cfg, wrappers):
+    """``Evaluator.val`` with the IoU over DP_VAL_BATCHES batches of
+    TRAIN_BATCH whose keypoints overlap their ground truth; returns
+    (averages, launches, the averages through the plain K5)."""
+    from tpudet3d_torch.eval import metrics
+    from tpudet3d_torch.ops import box3d
+    ev = overlapping_evaluator(parts[0], parts[2], cfg, dev, TRAIN_BATCH,
+                               seed=17)
+    avg, launches = drive(wrappers, lambda: quiet(ev.val, compute_iou=True)[0])
+    kernel = metrics.iou_oriented_boxes
+    metrics.iou_oriented_boxes = box3d.iou_oriented_boxes_plain
+    try:
+        plain, _ = quiet(ev.val, compute_iou=True)
+    finally:
+        metrics.iou_oriented_boxes = kernel
+    return np.asarray(avg), launches, np.asarray(plain)
+
+
+def dp_path(dev, wrappers, gpu, tmp):
+    """11b and 11c: el0 and the cascade detector under an NCCL group of one
+    process against no group; then two gloo processes on cuda:0 against
+    one process over the same global batch."""
+    import os
+
+    from tpudet3d_torch.core.config import read_py_config
+    from tpudet3d_torch.parallel import sharding
+    from tpudet3d_torch.tools.train_detector import setup, validate
+    res = {}
+    cfg = read_py_config(EL0_CONFIG)
+    cfg.data.train_batch_size = TRAIN_BATCH
+    batch = train_batch(cfg, TRAIN_BATCH, dev, seed=0)
+
+    def timed():
+        parts = train_parts(cfg, dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t = train_times(parts, batch, gen)
+        del parts
+        torch.cuda.empty_cache()
+        return t
+
+    def f32_steps():
+        f32 = dp_config(sgd=False)
+        parts = train_parts(f32, dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        b = train_batch(f32, 64, dev, seed=1)
+        with cudnn_deterministic():
+            for _ in range(3):
+                parts[1](parts[0], *b, gen)
+            val = dp_validation(dev, parts, f32, wrappers)
+        params = {k: v.detach().clone() for k, v in
+                  parts[0].model.state_dict().items()}
+        del parts
+        torch.cuda.empty_cache()
+        return params, val
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    no_group = timed()
+    params_ng, val_ng = f32_steps()
+    dev1 = sharding.maybe_init_distributed(group_config(free_port(), 1, 0),
+                                           dev, backend='nccl')
+    expect(torch.distributed.get_backend() == 'nccl' and
+           sharding.world() == 1, 'no NCCL group of one process')
+    try:
+        grouped = timed()
+        params_g, val_g = f32_steps()
+        for k, v in params_ng.items():
+            expect(torch.equal(v, params_g[k]), f'world 1: {k} differs')
+        avg, launches, plain = val_g
+        expect(launches == [0, 0, 0, 0, DP_VAL_BATCHES, 0, 0],
+               f'validation under the group: launches {launches}')
+        expect(np.array_equal(avg[[2]], val_ng[0][[2]]) and
+               np.allclose(avg, val_ng[0], rtol=1e-6, atol=0),
+               f'validation under the group {avg} vs without {val_ng[0]}')
+        # the pairs overlap (IoU well above 0), and K5 keeps phase 2's
+        # bound of 1e-5 a sample against its plain version
+        expect(avg[3] > 0.1 and abs(avg[3] - plain[3]) <= 1e-5 and
+               np.allclose(avg[:3], plain[:3], rtol=1e-6, atol=0),
+               f'validation IoU against the plain K5: {avg} vs {plain}')
+        res['regressor'] = dict(step_ms_no_group=no_group['step_ms'],
+                                step_ms_world1=grouped['step_ms'],
+                                idle_no_group=no_group['device_idle_share'],
+                                idle_world1=grouped['device_idle_share'],
+                                busy_ms_no_group=no_group['device_busy_ms'],
+                                busy_ms_world1=grouped['device_busy_ms'],
+                                val=avg.tolist(), val_launches=launches,
+                                val_iou_plain_err=float(abs(avg[3]
+                                                            - plain[3])))
+        print(f'phase 11b el0 bf16 batch {TRAIN_BATCH} on {gpu}: step '
+              f'{no_group["step_ms"]:.2f} ms without a group, '
+              f'{grouped["step_ms"]:.2f} ms under NCCL world 1; 3 f32 steps '
+              f'bit for bit; validation launches {launches}, averages '
+              f'{avg.tolist()}, IoU {abs(avg[3] - plain[3]):.3g} from the '
+              f'plain K5\'s')
+
+        # 11c: the cascade detector through tools/train_detector.py
+        dcfg = det_config(os.path.join(tmp, 'det'))
+        dcfg.data.update(DP_DET_OVERRIDES)
+        run, _ = quiet(setup, dcfg, dev)
+        quiet(run.trainer.train, 0, True)
+        with cudnn_deterministic():
+            val_group, det_launches = drive(
+                wrappers, lambda: quiet(validate, run, 0)[0])
+    finally:
+        torch.distributed.destroy_process_group()
+    expect(sharding.world() == 1 and not torch.distributed.is_initialized(),
+           'the group is still up')
+    no_group_after = timed()        # A-B-A: the order's share of the gap
+    with cudnn_deterministic():
+        val_none, det_launches_ng = drive(
+            wrappers, lambda: quiet(validate, run, 0)[0])
+    n_val = len(run.val_loader)
+    expect(det_launches == det_launches_ng == [0, 0, n_val, 0, 0, 0, 0],
+           f'detector validation launches {det_launches} / '
+           f'{det_launches_ng}, want {n_val} K3')
+    expect(val_group == val_none, f'mAP under the group {val_group} vs '
+           f'without {val_none}')
+    res['regressor'].update(step_ms_no_group_after=no_group_after['step_ms'],
+                            idle_no_group_after=no_group_after[
+                                'device_idle_share'])
+    print(f'phase 11b el0 step without a group after it on {gpu}: '
+          f'{no_group_after["step_ms"]:.2f} ms (idle share without, under, '
+          f'after: {no_group["device_idle_share"]:.3f}, '
+          f'{grouped["device_idle_share"]:.3f}, '
+          f'{no_group_after["device_idle_share"]:.3f})')
+    res['detector'] = dict(mAP=val_group['mAP'], launches=det_launches)
+    print(f'phase 11c cascade batch {dcfg.data.train_batch_size} on {gpu}: '
+          f'{len(run.train_loader)} steps and a validation under NCCL world 1, mAP {val_group["mAP"]:.4f} '
+          f'as without it, launches {det_launches}')
+    del run
+    torch.cuda.empty_cache()
+
+    res.update(compare_dp(dev, tmp, gpu, 2, 'gloo'))
+    return res
+
+
+def compare_dp(dev, tmp, gpu, world, backend):
+    """``world`` processes of a ``backend`` group (``dp_work``) against
+    one process on ``dev`` over the same global batches: the loss at step
+    0 within 1e-4, over the steps within 5e-2 (JAX's bounds); the
+    regressor's update at step 1 within 5e-2 of its norm, whatever the
+    learning rate, and its parameters within JAX's leaf-wise 5e-2; the
+    running statistics, ALWA and EMA equal on every rank; the validation's
+    averages within 1e-6 of one process's over the same batches and equal
+    on every rank; rank 0's snapshot
+    resumed on every rank; the mAP over every rank's detections equal to
+    one process's over the same detections.  Each rank's el0 step time."""
+    t0 = time.perf_counter()
+    device = 'cuda:0' if backend == 'gloo' else 'cuda:{rank}'
+    ranks = spawn_group(world, backend, device, dp_work, (tmp,), tmp, 300)
+    spawn_s = time.perf_counter() - t0
+    one = dp_work(dev, 1, 0, tmp, split=world)
+    many = ranks[0]
+    res = {}
+    for key, tol in (('reg_metrics', 5e-2), ('det_metrics', 5e-2)):
+        a = torch.stack(many[key])[:, 0].double()
+        b = torch.stack(one[key])[:, 0].double()
+        err0 = abs(float(a[0] - b[0])) / abs(float(b[0]))
+        errs = ((a - b).abs() / b.abs()).max().item()
+        expect(err0 <= 1e-4 and errs <= tol, f'{key}: {world} processes '
+               f'{a.tolist()} vs one {b.tolist()}')
+        res[key + '_rel_err'] = [err0, errs]
+    start = one['reg_params_0']
+    for k, v in start.items():
+        expect(torch.equal(v, many['reg_params_0'][k]), f'start {k} differs')
+    upd = update_err(many['reg_params_1'], one['reg_params_1'], start)
+    leaf, worst = max_leaf_err(many['reg_params_1'], one['reg_params_1'])
+    worst_upd = update_err(many['reg_params_1'], one['reg_params_1'], start,
+                           [worst])
+    expect(upd < 5e-2 and leaf < 5e-2, f'regressor after step 1: update '
+           f'{upd:.3g} of its norm, leaf-wise {leaf:.3g} at {worst}')
+    for field in ('reg_stats', 'reg_alwa', 'reg_ema', 'det_stats',
+                  'reg_val', 'reg_val_trained', 'det_map'):
+        for other in ranks[1:]:
+            for k, v in (many[field].items() if isinstance(many[field], dict)
+                         else [('all', many[field])]):
+                expect(np.array_equal(np.asarray(v),
+                                      np.asarray(other[field][k]
+                                                 if k != 'all'
+                                                 else other[field])),
+                       f'{field} {k} differs between the ranks')
+    expect(all(r['resumed'] for r in ranks) and one['resumed'],
+           'a rank did not resume rank 0\'s snapshot')
+    # the validation's sums through the group against one process fed
+    # the same batches: equal but for their order of addition
+    def val_err(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b).clip(min=1e-30)))
+    split_err = val_err(many['reg_val'], one['reg_val_split'])
+    batch_err = val_err(one['reg_val_split'], one['reg_val'])
+    trained_err = val_err(many['reg_val_trained'], one['reg_val_trained'])
+    expect(split_err <= 1e-6 and one['reg_val'][3] > 0.1,
+           f'validation under {world} processes {many["reg_val"]} vs one '
+           f'process over the same batches {one["reg_val_split"]}')
+    joined, n_records = det_map_over_ranks(ranks, world)
+    expect(np.array_equal(joined, many['det_map']) and n_records > 0,
+           f'mAP over {world} processes {many["det_map"]} vs one process '
+           f'over their {n_records} detections {joined}')
+    stats_err = max_leaf_err(many['reg_stats'], one['reg_stats'])[0]
+    res.update(params_update_err=upd, params_leaf_err=leaf,
+               params_worst_leaf=[worst, worst_upd], stats_leaf_err=stats_err,
+               val=many['reg_val'].tolist(), val_rel_err=split_err,
+               val_batch_size_rel_err=batch_err,
+               val_trained=many['reg_val_trained'].tolist(),
+               val_trained_rel_err=trained_err,
+               mAP=float(many['det_map'][-1]),
+               mAP_own_forward=float(one['det_map'][-1]),
+               det_records=n_records, spawn_s=spawn_s, backend=backend,
+               world=world, step_ms_ranks=[r['reg_step_ms'] for r in ranks],
+               step_ms_one=one['reg_step_ms'],
+               profile_rank0=many['reg_profile'], profile_one=one['reg_profile'])
+    where = 'cuda:0' if backend == 'gloo' else f'{world} cards'
+    print(f'phase 11b/c {world} {backend} processes on {where} of {gpu} '
+          f'against one: loss at step 0 '
+          f'{res["reg_metrics_rel_err"][0]:.3g} (regressor), '
+          f'{res["det_metrics_rel_err"][0]:.3g} (detector), over the steps '
+          f'{res["reg_metrics_rel_err"][1]:.3g} / '
+          f'{res["det_metrics_rel_err"][1]:.3g}; the update at step 1 '
+          f'{upd:.3g} of its norm, parameters {leaf:.3g} leaf-wise (at '
+          f'{worst}, whose update is {worst_upd:.3g} of its norm); running '
+          f'statistics, ALWA and EMA equal on every rank; validation '
+          f'{many["reg_val"].tolist()} ({split_err:.3g} from one process '
+          f'over the same batches, which is {batch_err:.3g} from itself '
+          f'over whole batches), of the trained state '
+          f'{many["reg_val_trained"].tolist()} ({trained_err:.3g} from one '
+          f'process\'s); '
+          f'rank 0\'s snapshot resumed on every rank; mAP '
+          f'{many["det_map"][-1]:.4f} over {n_records} detections as one '
+          f'process over them (its own forward: {one["det_map"][-1]:.4f}); '
+          f'{spawn_s:.1f} s for the processes; f32 el0 step '
+          f'{res["step_ms_ranks"]} ms a rank at {DP_BATCH[0] // world} rows '
+          f'(synchronised batch norm through {backend}) against '
+          f'{res["step_ms_one"]:.2f} ms for one process at {DP_BATCH[0]}; '
+          f'a profiled step (2 steps) rank 0 / one process: busy '
+          f'{many["reg_profile"]["busy_ms"] / 2:.2f} / '
+          f'{one["reg_profile"]["busy_ms"] / 2:.2f} ms, launches '
+          f'{many["reg_profile"]["launches"] / 2:.0f} / '
+          f'{one["reg_profile"]["launches"] / 2:.0f}, wall '
+          f'{many["reg_profile"]["wall_ms"] / 2:.2f} / '
+          f'{one["reg_profile"]["wall_ms"] / 2:.2f} ms')
+    return res
+
+
+def det_map_over_ranks(ranks, world):
+    """One process's ``DetectorEvaluator`` (no group) over every rank's
+    detections, put back in the global batches' order: the APs and the
+    count of records."""
+    from tpudet3d_torch.detect import DetectorEvaluator
+    m = DP_BATCH[1]
+    items = det_items(m * DP_VAL_BATCHES, seed=9)
+    ev = DetectorEvaluator(None)
+    for i, lo in enumerate(range(0, m * DP_VAL_BATCHES, m)):
+        dets = torch.zeros(m, *ranks[0]['det_dets'][i].shape[1:])
+        for r, res in enumerate(ranks):
+            dets[r::world] = res['det_dets'][i]
+        ev.add_batch(None, *(a[lo:lo + m] for a in items[1:]), dets=dets)
+    return det_map(ev), ev._n
+
+
+def serving_fps(fn, calls=SHARD_CALLS):
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return 16 / sorted(ms)[len(ms) // 2] * 1e3
+
+
+def sharded_serving(dev, wrappers, frames_np, plain, norm, gpu):
+    """11d: ``build_engine()`` (bf16, full width) over 16 720p frames,
+    unsharded, over one replica and over two replicas on cuda:0."""
+    from tpudet3d_torch.infer import build_engine
+    engine = build_engine(det_conf=0.0, device=dev)
+    with cudnn_deterministic():
+        whole = engine.infer_batch(frames_np)
+        halves = engine.infer_batch(frames_np[:8]) + \
+            engine.infer_batch(frames_np[8:])
+        fps = {'unsharded': serving_fps(lambda: engine.infer_batch(
+            frames_np))}
+        out = {}
+        for name, devices in (('1 replica', ['cuda:0']),
+                              ('2 replicas', ['cuda:0', 'cuda:0'])):
+            engine.shard(devices)
+            rows, launches = drive(wrappers,
+                                   lambda: engine.infer_batch(frames_np))
+            k = len(devices)
+            expect(launches == [k] * 4 + [0, 0, 0],
+                   f'{name}: launches {launches}')
+            check_results(rows, *FRAME[:2])
+            ref = whole if k == 1 else halves
+            same_results(rows, ref, f'{name} rows')
+            same_results(rows, whole, f'{name} rows against the whole batch')
+            diff = max(float(np.abs(np.float64(r[key])
+                                    - np.float64(q[key])).max())
+                       for r, q in zip(rows, whole) for key in r
+                       if np.size(r[key]) and r[key].shape == q[key].shape)
+            out[name] = dict(launches=launches, max_diff_whole_batch=diff,
+                             equal_whole_batch=all(
+                                 np.array_equal(r[key], q[key])
+                                 for r, q in zip(rows, whole) for key in r))
+            fps[name] = serving_fps(lambda: engine.infer_batch(frames_np))
+        try:
+            engine.infer_batch(frames_np[:3])
+            expect(False, 'N=3 over 2 replicas did not raise')
+        except ValueError:
+            pass
+        # the kernels at a slice's shapes against their plain versions
+        errs = path_intermediates(engine, frames_np[:8], plain, norm)
+    engine.det_model = engine.det_model
+    expect(engine._replicas is None, 'a new detector kept the replicas')
+    print(f'phase 11d sharded serving on {gpu}: frames/s '
+          + ', '.join(f'{k} {v:.1f}' for k, v in fps.items())
+          + f'; rows equal the unsharded engine\'s slices bit for bit '
+          f'(whole batch: {out["2 replicas"]["equal_whole_batch"]}, '
+          f'largest difference {out["2 replicas"]["max_diff_whole_batch"]:.3g}'
+          f'); launches {[o["launches"] for o in out.values()]}; N=3 raises')
+    return dict(fps=fps, runs=out, slice_errs=list(errs)), engine
+
+
+def utilities(dev, engine, frames_np, gpu, tmp):
+    """11e: the complexity CLI, a profiled serving call's trace, a sweep of
+    2 trials."""
+    import os
+
+    from tpudet3d_torch.tools import get_complexity, optuna_optim
+    from tpudet3d_torch.utils import profiling
+    res = {}
+    for cfg in ('configs/scene_regressor.py', EL0_CONFIG):
+        r, text = quiet(get_complexity.main, ['--config', cfg])
+        expect(r['params'] > 0 and r['macs'] > 0, f'complexity of {cfg}')
+        res[cfg] = dict(params=r['params'], macs=r['macs'])
+        print(f'phase 11e {cfg} on {gpu}: {r["params"]:,} parameters, '
+              f'{r["macs"] / 1e6:.2f} MMac (convolutions and matrix '
+              f'products, FlopCounterMode) at {r["input_shape"]}')
+    logdir = os.path.join(tmp, 'trace')
+    with profiling.trace(logdir):
+        for _ in range(2):      # the tracer may miss a first launch
+            with profiling.annotate('serving call'):
+                engine.infer_batch(frames_np)
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, profiling.TRACE_FILE)) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    seen = [k for k in K1_K4_NAMES if any(k in n for n in names)]
+    expect(seen == list(K1_K4_NAMES) and 'serving call' in names,
+           f'the trace names {seen} of {K1_K4_NAMES}')
+    res['trace_kernels'] = seen
+
+    path = os.path.join(tmp, 'sweep.py')
+    with open(path, 'w') as f:
+        f.write(f"exec(open('configs/scene_regressor_el0_wing.py').read())\n"
+                f"data.update(synthetic=True, synthetic_length=1024, "
+                f"train_batch_size={TRAIN_BATCH}, val_batch_size="
+                f"{TRAIN_BATCH})\noutput_dir = {tmp!r}\n")
+    t0 = time.perf_counter()
+    study, text = quiet(optuna_optim.main, ['--config', path, *OPTUNA_ARGS])
+    sweep_s = time.perf_counter() - t0
+    trials = [(t.params, t.value) for t in study.trials]
+    expect(len(trials) == 2 and all(np.isfinite(v) for _, v in trials),
+           f'sweep trials {trials}')
+    res.update(trials=trials, sweep_s=sweep_s)
+    print(f'phase 11e on {gpu}: the trace names K1-K4; sweep of 2 trials x '
+          f'1 epoch at '
+          f'batch {TRAIN_BATCH} in {sweep_s:.1f} s: ' + '; '.join(
+              f'w {p["w"]:.3f} eps {p["eps"]:.3f} -> SADD {v:.4f}'
+              for p, v in trials))
+    return res
+
+
+def parallel_path(dev, wrappers, frames_np, plain, norm, gpu):
+    """Phase 11: 11a-11e; the launches of each driven run."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        imported = reference_import(dev, tmp, gpu)
+        dp = dp_path(dev, wrappers, gpu, tmp)
+        shard, engine = sharded_serving(dev, wrappers, frames_np, plain, norm,
+                                        gpu)
+        tools = utilities(dev, engine, frames_np, gpu, tmp)
+    launches = {'dp validation': dp['regressor']['val_launches'],
+                'dp detector validation': dp['detector']['launches'],
+                **{f'shard {k}': v['launches']
+                   for k, v in shard['runs'].items()}}
+    return dict(imported=imported, dp=dp, shard=shard, tools=tools,
+                launches=launches)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
+    ap.add_argument('--dp-cards', type=int, default=0,
+                    help='instead of the phases: the data-parallel '
+                         'comparison of phase 11 over this many cards, one '
+                         'process a card through NCCL')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
+    if args.dp_cards:
+        return dp_cards(args.dp_cards, args.out)
     return run(torch.device('cuda'), args.out)
+
+
+def dp_cards(world, out_path):
+    """``--dp-cards``: :func:`compare_dp` through NCCL over ``world`` cards,
+    then the contract's last line."""
+    import tempfile
+    expect(torch.cuda.device_count() >= world,
+           f'{world} cards asked for, {torch.cuda.device_count()} visible')
+    gpu = gpu_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        res = compare_dp(torch.device('cuda:0'), tmp, gpu, world, 'nccl')
+    if out_path:
+        with open(out_path, 'w') as f:
+            json.dump({'gpu': gpu, 'dp_cards': res}, f, indent=1)
+    print(gpu)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
 
 
 def run(dev, out_path, iters=20):
@@ -3123,6 +3953,15 @@ def run(dev, out_path, iters=20):
     det = detector_training_path(dev, wrappers + (iou,) + int8_wrappers,
                                  frames_np, gpu)
     done('10 detector training')
+
+    # 11. the last modules: reference checkpoints, data parallelism under
+    # process groups, sharded serving, the tools
+    parallel = parallel_path(dev, wrappers + (iou,) + int8_wrappers,
+                             frames_np, (
+        resize_bilinear_plain, crop_and_resize_plain,
+        decode_detections_plain, crop_and_resize, head_epilogue,
+        head_epilogue_plain), norm, gpu)
+    done('11 parallel and tools')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -3174,6 +4013,8 @@ def run(dev, out_path, iters=20):
                              det['launches'].items()}
         k['launches_int8'] = {name: n[i] for name, n in
                               int8['launches'].items()}
+        k['launches_parallel'] = {name: n[i] for name, n in
+                                  parallel['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
@@ -3214,7 +4055,8 @@ def run(dev, out_path, iters=20):
               f"{k['launches_int8']} int8 infer_batch(16), "
               f"{k['launches_train']} on the training path, "
               f"{k['launches_loop']} on the training loop, "
-              f"{k['launches_det']} on detector training), max "
+              f"{k['launches_det']} on detector training, "
+              f"{k['launches_parallel']} on phase 11), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -3225,6 +4067,7 @@ def run(dev, out_path, iters=20):
                        'evaluation': evaluation, 'flagship': flagship,
                        'int8': int8, 'training': training,
                        'loop': loop, 'detector_training': det,
+                       'parallel': parallel,
                        'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)

@@ -222,12 +222,27 @@ def test_refine_and_tta_units_match_jax():
 
 
 def test_unported_options_raise(weights):
-    """``shard`` is not ported and raises; int8 scales are served (an empty
-    dict, as in JAX, changes nothing: tests/test_torch_port_quant.py holds
-    the int8 path itself)."""
+    """``shard`` serves: over two replicas the rows equal the unsharded
+    engine's over the same slices bit for bit (a convolution's rounding
+    may depend on the batch size, so the whole batch's only within it),
+    and a batch that does not split evenly raises (JAX's assertion); int8
+    scales are served (an empty dict, as in JAX, changes nothing:
+    tests/test_torch_port_quant.py holds the int8 path itself)."""
     _, port_eng = _engines(weights, 'default')
-    with pytest.raises(NotImplementedError):
-        port_eng.shard(None)
+    frames = np.random.RandomState(11).randint(0, 256, (2, 64, 96, 3)) \
+        .astype(np.uint8)
+    with one_cpu_thread():
+        whole = port_eng.infer_batch(frames)
+        slices = port_eng.infer_batch(frames[:1]) + \
+            port_eng.infer_batch(frames[1:])
+        port_eng.shard(['cpu', 'cpu'])
+        for a, b, c in zip(port_eng.infer_batch(frames), slices, whole):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+                np.testing.assert_allclose(a[k], c[k], atol=1e-4)
+    with pytest.raises(ValueError, match='split evenly'):
+        port_eng.infer_batch(frames[:1])
+    port_eng.det_model = port_eng.det_model      # drops the replicas
     frame = np.random.RandomState(10).randint(0, 256, (64, 96, 3)) \
         .astype(np.uint8)
     ref = port_eng(frame)

@@ -631,6 +631,14 @@ def test_setup_training_reference_weights(tmp_path, capsys, monkeypatch):
     pipe = setup_training(cfg, device='cpu', with_loaders=False)
     assert 'training from random init' in capsys.readouterr().out
     assert pipe.train_loader is None and pipe.device == torch.device('cpu')
+    # a named reference checkpoint must exist, and then it is loaded
     cfg.model.load_weights = str(tmp_path / 'imagenet.pth')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+    with pytest.raises(FileNotFoundError):
         setup_training(cfg, device='cpu', with_loaders=False)
+    from tpudet3d_torch.utils import pretrained_contract as pc
+    gen = torch.Generator().manual_seed(0)
+    torch.save({k: torch.randn(s, generator=gen) if s else torch.tensor(1)
+                for k, s in pc.dli14_mobilenetv3('small')},
+               cfg.model.load_weights)
+    pipe = setup_training(cfg, device='cpu', with_loaders=False)
+    assert 'torch import: matched' in capsys.readouterr().out

@@ -18,6 +18,8 @@ Rotations assume square images.
 
 import torch
 
+from ..parallel.sharding import local_rows, world
+
 __all__ = ['build_detector_augmentations', 'DetectorAugmentations']
 
 
@@ -95,8 +97,10 @@ class DetectorAugmentations:
         return img / 255.0, boxes
 
     def __call__(self, imgs, boxes, generator=None):
-        return self.apply(imgs, boxes,
-                          self.sample(imgs.shape[0], generator, imgs.device))
+        # under a process group: the global batch's draws, this process's
+        # rows of them (``parallel/``)
+        return self.apply(imgs, boxes, local_rows(self.sample(
+            imgs.shape[0] * world(), generator, imgs.device)))
 
 
 def build_detector_augmentations(flip_p=0.5, rot_p=0.5, train=True):

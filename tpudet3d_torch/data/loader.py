@@ -8,7 +8,13 @@ card.  Shuffling follows the reference: train shuffled with ``drop_last``,
 val shuffled with ``seed + 1``, test in order with ``seed + 2``.
 
 With a ``torch.distributed`` process group each process reads its own
-interleaved slice of the identically shuffled index stream.
+interleaved slice ``rank::world`` of the identically shuffled index
+stream, and every process gets the same number of batches (a collective
+in each step or validation batch would wait forever otherwise): with
+``drop_last`` the stream is cut to a multiple of the processes, else a
+process short of an item repeats the stream's first, which its last
+batch's ``true_n`` leaves out.  ``build_loader`` sizes each process's
+batches as the config's global batch over the processes.
 """
 
 import queue
@@ -61,8 +67,14 @@ class BatchLoader:
         if self.shuffle:
             self._rng.shuffle(idx)
         n_proc, rank = _process_slice()
+        n_pad = 0
         if n_proc > 1:
-            idx = idx[rank::n_proc]
+            if self.drop_last:
+                idx = idx[:len(idx) - len(idx) % n_proc][rank::n_proc]
+            else:
+                mine = idx[rank::n_proc]
+                n_pad = -(-len(idx) // n_proc) - len(mine)
+                idx = np.concatenate([mine, idx[:n_pad]])
         n_full = len(idx) // self.batch_size
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(n_full)]
@@ -76,7 +88,7 @@ class BatchLoader:
                 batches.append(np.concatenate([tail, pad]))
             else:
                 batches.append(tail)
-        self._true_tail = rem if rem else self.batch_size
+        self._true_tail = (rem if rem else self.batch_size) - n_pad
         return batches
 
     def _assemble(self, indices, epoch):
@@ -181,18 +193,18 @@ def _make_dataset(config, mode, seed=0):
 def build_loader(config, seed=0):
     """train/val/test loaders; the geometric train augmentations run in the
     loader threads (``host_transforms``)."""
+    from ..parallel.sharding import local_batch
     from .host_transforms import build_host_pipeline
     host_train = build_host_pipeline(config.train_data_pipeline or [],
                                      seed=seed)
     threads = int(config.data.num_workers or 4)
+    val_batch = local_batch(int(config.data.val_batch_size))
     train = BatchLoader(_make_dataset(config, 'train', seed=seed),
-                        int(config.data.train_batch_size), shuffle=True,
-                        drop_last=True, num_threads=threads, seed=seed,
-                        host_transform=host_train)
-    val = BatchLoader(_make_dataset(config, 'val', seed=seed),
-                      int(config.data.val_batch_size), shuffle=True,
-                      num_threads=threads, seed=seed + 1)
-    test = BatchLoader(_make_dataset(config, 'test', seed=seed),
-                       int(config.data.val_batch_size), shuffle=False,
-                       num_threads=threads, seed=seed + 2)
+                        local_batch(int(config.data.train_batch_size)),
+                        shuffle=True, drop_last=True, num_threads=threads,
+                        seed=seed, host_transform=host_train)
+    val = BatchLoader(_make_dataset(config, 'val', seed=seed), val_batch,
+                      shuffle=True, num_threads=threads, seed=seed + 1)
+    test = BatchLoader(_make_dataset(config, 'test', seed=seed), val_batch,
+                       shuffle=False, num_threads=threads, seed=seed + 2)
     return train, val, test

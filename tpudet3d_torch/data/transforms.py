@@ -28,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import local_rows, world
+
 __all__ = ['build_augmentations', 'build_transform', 'Pipeline',
            'TRANSFORMS_REGISTRY', 'rgb_to_hsv', 'hsv_to_rgb']
 
@@ -498,8 +500,10 @@ class Pipeline:
         return imgs, kps
 
     def __call__(self, imgs, kps, generator):
-        return self.apply(imgs, kps, self.sample(imgs.shape[0], generator,
-                                                 imgs.device))
+        # under a process group: the global batch's draws, this process's
+        # rows of them (``parallel/``)
+        return self.apply(imgs, kps, local_rows(self.sample(
+            imgs.shape[0] * world(), generator, imgs.device)))
 
 
 def build_augmentations(cfg, host_geometric=True):

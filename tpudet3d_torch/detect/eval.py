@@ -6,6 +6,12 @@ batch statistics), the decode and NMS of kernel K3 once per batch
 (``max_per_img`` 100, ``pre_nms_k`` 200), then the JAX package's
 score-ranked matching on the host and all-point interpolated AP at an IoU
 threshold.
+
+Under a process group each rank matches its own images; ``results``
+gathers every rank's (score, matched) records and ground-truth counts
+before AP, since AP ranks all detections by score.  The records are put
+in the order one process would have made them: image ``j`` of rank ``r``
+is image ``r + world·j`` of the loader's interleaved stream.
 """
 
 from collections import defaultdict
@@ -13,6 +19,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..parallel import sharding
 from .anchors import generate_anchors
 from .nms import decode_detections
 
@@ -53,7 +60,10 @@ class DetectorEvaluator:
         self.max_per_img = max_per_img
         self._anchors = torch.from_numpy(generate_anchors())
         self._records = defaultdict(list)   # cls -> [(score, matched)]
+        self._order = defaultdict(list)     # cls -> [(image, record)]
         self._num_gt = np.zeros(num_classes, np.int64)
+        self._images = 0                    # images added on this rank
+        self._n = 0                         # records added on this rank
 
     @torch.no_grad()
     def detect(self, imgs):
@@ -79,6 +89,8 @@ class DetectorEvaluator:
             dets = self.detect(imgs)
         dets = dets.cpu().numpy()
         for b in range(dets.shape[0]):
+            image = self._images * sharding.world() + sharding.rank()
+            self._images += 1
             boxes = np.asarray(gt_boxes[b])[np.asarray(gt_valid[b])]
             labels = np.asarray(gt_labels[b])[np.asarray(gt_valid[b])]
             for c in np.unique(labels):
@@ -107,18 +119,39 @@ class DetectorEvaluator:
                         used[cand[best]] = True
                         matched = True
                 self._records[label].append((float(score), matched))
+                self._order[label].append((image, self._n))
+                self._n += 1
 
     def results(self):
         """{class_id: AP} and 'mAP' over the classes with ground truth."""
+        records, num_gt = self._records, self._num_gt
+        if sharding.world() > 1:
+            records, num_gt = self._gathered()
         out = {}
         aps = []
         for c in range(self.num_classes):
-            recs = self._records.get(c, [])
+            recs = records.get(c, [])
             scores = [r[0] for r in recs]
             matched = [r[1] for r in recs]
-            ap = average_precision(scores, matched, int(self._num_gt[c]))
+            ap = average_precision(scores, matched, int(num_gt[c]))
             out[c] = ap
-            if self._num_gt[c] > 0:
+            if num_gt[c] > 0:
                 aps.append(ap)
         out['mAP'] = float(np.mean(aps)) if aps else 0.0
         return out
+
+    def _gathered(self):
+        """Every rank's records, in one process's order, and the summed
+        ground-truth counts."""
+        rows = [(c, image, n, score, matched)
+                for c in self._records
+                for (score, matched), (image, n) in zip(self._records[c],
+                                                        self._order[c])]
+        rows = sharding.gather_rows(np.asarray(rows, np.float64)
+                                    .reshape(-1, 5))
+        rows = rows[np.lexsort((rows[:, 2], rows[:, 1]))]
+        records = defaultdict(list)
+        for c, _, _, score, matched in rows:
+            records[int(c)].append((float(score), bool(matched)))
+        num_gt = sharding.gather_rows(self._num_gt[None]).sum(0)
+        return records, num_gt.astype(np.int64)

@@ -10,6 +10,12 @@ backward, SGD with momentum and the weight decay added to the gradient
 parameters and the loss-balancing pair, the EMA and ``step += 1``.  The
 learning rate is a host function of a host step counter, written into the
 optimizer before each step.
+
+Under a process group (``parallel/``) the step computes what one process
+computes over the global batch: the SSD loss is a mean of per-image
+terms, so averaging the gradient over the processes after ``backward``
+gives the global batch's, with batch norm synchronised; the metrics are
+the global batch's on every rank.  The loop prints and saves on rank 0.
 """
 
 import dataclasses
@@ -24,6 +30,7 @@ from torch import nn
 from ..core import AverageMeter
 from ..core.device import resolve_device
 from ..models.layers import init_weights
+from ..parallel import sharding
 from ..train.optim import set_learning_rate
 from ..train.trainer import LateReader
 from ..utils.checkpoint import save_snap
@@ -135,6 +142,7 @@ def make_detector_train_step(model, optimizer, use_balance=False,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         total.backward()
+        sharding.all_reduce_mean([p.grad for p in params])
         optimizer.step()
         if ema_decay > 0:
             ema = list(state.ema_params.values())
@@ -144,6 +152,7 @@ def make_detector_train_step(model, optimizer, use_balance=False,
         metrics = torch.stack([total.detach(), parts['cls_loss'].detach(),
                                parts['reg_loss'].detach(),
                                parts['num_pos']]).float()
+        sharding.all_reduce_mean([metrics])
         state.step += 1
         return state, metrics
 
@@ -185,6 +194,8 @@ class DetectorTrainer:
             m = late.read(handle)
             for meter, v in zip(meters, m):
                 meter.update(float(v), n)
+            if not sharding.is_main_process():
+                return
             msg = ' '.join(f'{k} {mm.val:.4f}({mm.avg:.4f})'
                            for k, mm in zip(names, meters))
             print(f'det epoch [{epoch}/{self.max_epoch}][{it}] {msg} '
@@ -215,5 +226,7 @@ class DetectorTrainer:
         if pending is not None:
             report(*pending)
         if epoch % self.save_freq == 0 or is_last_epoch:
-            save_snap(self.state, epoch, self.log_path)
+            if sharding.is_main_process():
+                save_snap(self.state, epoch, self.log_path)
+            sharding.barrier()
         return self.state

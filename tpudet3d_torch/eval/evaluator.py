@@ -6,7 +6,10 @@ SADD, accuracy and, with ``compute_iou``, the 3D IoU (the batched EPnP
 lift and kernel K5, one launch a batch); the host accumulates 9×5 numbers
 a batch.  ``weights`` masks the padded tail of the last batch.  The
 averages accumulate in float32 as the JAX package's do, so the table
-prints the same.
+prints the same.  Under a process group each batch's sums and real count
+are summed over the processes (one collective a batch), so every rank
+holds the global averages; rank 0 prints, writes the scalars and draws
+the visual test.
 """
 
 from dataclasses import dataclass
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core import AverageMeter, OBJECTRON_CLASSES, TextTable, mkdir_if_missing
+from ..parallel import sharding
 from ..train.state import eval_params
 from ..utils.drawing import draw_kp
 
@@ -69,9 +73,13 @@ class Evaluator:
                        < true_n).float()
             sums, _ = self.eval_step(params, imgs_d, kps_d, cats_d, weights,
                                      compute_iou=bool(compute_iou))
+            bs = int(true_n)
+            if sharding.world() > 1:
+                flat = sharding.all_reduce_sum(torch.cat(
+                    [torch.stack(sums).reshape(-1), weights.new_tensor([bs])]))
+                sums, bs = flat[:-1].view(5, -1), int(flat[-1])
             add_s, sadd_s, iou_s, acc_s, counts = (
                 s.cpu().numpy() for s in sums)
-            bs = int(true_n)
             meters['ADD'].update(add_s.sum() / bs, bs)
             meters['SADD'].update(sadd_s.sum() / bs, bs)
             meters['ACC'].update(acc_s.sum() / bs, bs)
@@ -81,6 +89,9 @@ class Evaluator:
             if self.debug and it == self.debug_steps:
                 break
 
+        if not sharding.is_main_process():
+            return (meters['ADD'].avg, meters['SADD'].avg, meters['ACC'].avg,
+                    meters['IOU'].avg)
         if epoch is not None and self.writer is not None:
             self.writer.add_scalar('Val/ADD', meters['ADD'].avg, global_step=epoch)
             self.writer.add_scalar('Val/SADD', meters['SADD'].avg, global_step=epoch)
@@ -112,6 +123,8 @@ class Evaluator:
     def visual_test(self):
         """Draw GT and predicted keypoints of N test items re-projected to
         the original frame (needs cv2)."""
+        if not sharding.is_main_process():
+            return
         if self.test_dataset is None:
             print('visual_test: no test dataset configured, skipping')
             return

@@ -17,10 +17,22 @@ With ``det_int8_scales`` / ``reg_int8_scales`` (``infer/quant.py``
 ``intercepting``: their calibrated dense ``ConvBN`` convs go through the int8
 path (K6, ``torch._int_mm``, K7), as the JAX program's do.  PyTorch runs
 eagerly, so the JAX engine's per-shape executable cache has no counterpart
-yet (CUDA-graph capture is a later slice).  ``shard()`` is not ported
-(ROADMAP.md).
+yet (CUDA-graph capture is a later slice).
+
+``shard(devices)`` serves ``infer_batch`` over several devices, as the
+JAX engine's ``shard(mesh)`` does over a mesh: each listed device holds a
+replica of both models (the engine's own modules on its own device, a
+copy elsewhere; the int8 scales are keyed by module path, so they carry
+over), and a call splits its frames into equal slices, runs each slice's
+fused path on its device's own stream and gathers the packed rows in
+order.  A device may be listed more than once (two replicas on one card
+run concurrently on two streams).  Setting ``det_model`` or
+``reg_model`` drops the replicas, as JAX's ``det_vars`` / ``reg_vars``
+setters drop its compiled programs.
 """
 
+import copy
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -99,6 +111,14 @@ def upload(frames, device):
     return t.to(device, non_blocking=True)
 
 
+def _canonical(device):
+    """``device`` with its index: ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
 def _unpack(rows, scale=1.0):
     return {
         'boxes': rows[:, 0:4] * scale,
@@ -120,12 +140,31 @@ class TwoStageEngine:
                  config: Optional[EngineConfig] = None, device=None):
         self.cfg = config or EngineConfig()
         self.device = resolve_device(device)
+        self._replicas = None     # [(engine, stream)] after shard()
         fmt = torch.channels_last
         self.det_model = detector.to(self.device, memory_format=fmt).eval()
         self.reg_model = regressor.to(self.device, memory_format=fmt).eval()
         self.anchors = torch.from_numpy(generate_anchors()).to(self.device)
         self._pending = []   # FIFO of in-flight results
         self._consts = {}
+
+    @property
+    def det_model(self):
+        return self._det_model
+
+    @det_model.setter
+    def det_model(self, model):
+        self._det_model = model
+        self._replicas = None
+
+    @property
+    def reg_model(self):
+        return self._reg_model
+
+    @reg_model.setter
+    def reg_model(self, model):
+        self._reg_model = model
+        self._replicas = None
 
     def _const(self, values):
         """A float32 device tensor for ``values``, made once."""
@@ -226,16 +265,77 @@ class TwoStageEngine:
     def _upload(self, frames):
         return upload(frames, self.device)
 
-    def shard(self, mesh):
-        raise NotImplementedError(
-            'multi-device serving (shard) is not ported yet')
+    # --- multi-device serving ----------------------------------------------
+    def shard(self, devices):
+        """Serve every ``infer_batch`` call over ``devices`` (e.g.
+        ``['cuda:0', 'cuda:1']``): one replica of the detector and the
+        regressor on each, the frames split into equal slices in order."""
+        devices = [_canonical(d) for d in devices]
+        if not devices:
+            raise ValueError('shard needs at least one device')
+        own = _canonical(self.device)
+        replicas = []
+        for dev in devices:
+            if dev.type == 'cuda' and not torch.cuda.is_available():
+                raise RuntimeError(f'{dev} listed but CUDA is not available')
+            rep = self if dev == own else self._replica(dev)
+            stream = (torch.cuda.Stream(dev) if dev.type == 'cuda'
+                      else None)
+            replicas.append((rep, stream))
+        if own.type == 'cuda':
+            torch.cuda.synchronize(own)
+        self._replicas = replicas
+        return self
+
+    def _replica(self, dev):
+        """A shallow copy of the engine serving on ``dev`` with its own
+        copies of the models and anchors."""
+        rep = copy.copy(self)
+        fmt = torch.channels_last
+        rep.device = dev
+        rep._det_model = copy.deepcopy(self.det_model).to(
+            dev, memory_format=fmt)
+        rep._reg_model = copy.deepcopy(self.reg_model).to(
+            dev, memory_format=fmt)
+        rep._replicas = None
+        rep.anchors = self.anchors.to(dev)
+        rep._pending = []
+        rep._consts = {}
+        return rep
+
+    def _sharded_batch(self, frames, h, w):
+        """frames ``[N,H,W,3]`` uint8 on the host → packed ``[N, max_det,
+        26]`` on the host, one slice a replica."""
+        k = len(self._replicas)
+        n = frames.shape[0]
+        if n % k:
+            raise ValueError(f'sharded serving needs the batch to split '
+                             f'evenly over the replicas: {n} % {k} != 0')
+        m = n // k
+        outs = []
+        for i, (rep, stream) in enumerate(self._replicas):
+            ctx = nullcontext() if stream is None else torch.cuda.stream(
+                stream)
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(stream.device))
+            with ctx:
+                outs.append(rep._pipeline_batch(
+                    rep._upload(frames[i * m:(i + 1) * m]), h, w))
+        for (_, stream) in self._replicas:
+            if stream is not None:
+                stream.synchronize()
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     # --- batched (server) API ---------------------------------------------
     def infer_batch(self, frames):
-        """frames ``[N,H,W,3]`` uint8 → list of per-frame result dicts."""
+        """frames ``[N,H,W,3]`` uint8 → list of per-frame result dicts.
+        After ``shard(devices)`` N must split evenly over the replicas."""
         n, h, w = frames.shape[:3]
-        packed = self._pipeline_batch(self._upload(frames), h, w)
-        packed = packed.cpu().numpy()
+        if self._replicas:
+            packed = self._sharded_batch(np.asarray(frames), h, w)
+        else:
+            packed = self._pipeline_batch(self._upload(frames), h, w)
+            packed = packed.cpu().numpy()
         return [_unpack(packed[i, np.nonzero(packed[i, :, 25] > 0)[0]])
                 for i in range(n)]
 

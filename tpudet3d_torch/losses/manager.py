@@ -7,12 +7,15 @@ unbiased, so std² = (Σx² − (Σx)²/n)/(n−1)), and every C steps ``lam_cls
 moves.  The update is selected with ``torch.where`` over every field, never
 by a branch on a device value, so a step reads nothing back to the host.
 As in the JAX package, the gradient flows through a ``lam_cls`` updated on
-this step.
+this step.  Under a process group the sums take the global batch's losses
+(``parallel.global_mean``), so the state stays equal on every rank.
 """
 
 import dataclasses
 
 import torch
+
+from ..parallel.sharding import global_mean
 
 __all__ = ['AlwaState', 'LossManager']
 
@@ -80,6 +83,7 @@ class LossManager:
             cls_loss = pred_kp.new_zeros(())
         if not self.use_alwa:
             return reg_loss + cls_loss, state
+        reg_loss, cls_loss = global_mean(reg_loss, cls_loss)
 
         s_cls = state.lam_cls * cls_loss
         s_reg = state.lam_reg * reg_loss

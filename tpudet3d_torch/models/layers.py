@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import sharding
+
 __all__ = ['make_divisible', 'hard_sigmoid', 'hard_swish',
            'global_pool', 'linear', 'conv', 'batch_norm', 'ConvBN',
            'SqueezeExcite', 'InvertedResidual', 'init_weights']
@@ -93,10 +95,17 @@ def batch_norm(x, bn, train=False):
     them, ``ra = (1 - m)·ra + m·batch`` with ``m = bn.momentum`` (0.1, Flax's
     momentum 0.9), the variance biased there too.  ``F.batch_norm`` would
     move ``running_var`` with the unbiased variance, so the buffers are
-    updated here from ``torch.var_mean``."""
+    updated here from ``torch.var_mean``.
+
+    Under a process group of more than one process (``parallel/``) the
+    statistics are the global batch's, as JAX's over a sharded batch:
+    :class:`_SyncBatchNorm`."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    if sharding.world() > 1:
+        return _SyncBatchNorm.apply(x, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var, bn.eps, bn.momentum)
     out = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
     with torch.no_grad():
         dims = [d for d in range(x.dim()) if d != 1]
@@ -105,6 +114,60 @@ def batch_norm(x, bn, train=False):
         bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
     return out
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training batch norm over the rows of every process.
+
+    Forward: each process's count, mean and biased variance per channel
+    (``torch.var_mean`` in float32, centred on its own rows), exchanged in
+    one all-reduce (each rank's row of a ``[world, 3, C]`` buffer, zeros
+    elsewhere) and combined by Chan's parallel formula, so the global
+    variance is as well conditioned as one process's; the output and the
+    running statistics (biased variance, as the single-process path) from
+    the global mean and variance.  Backward: one all-reduce of the two
+    sums the input's gradient needs, ``Σ dy`` and ``Σ dy·x̂``; the scale's
+    and bias's gradients stay this process's own (the step averages every
+    gradient over the processes).  ``nn.SyncBatchNorm`` refuses tensors on
+    the CPU and moves ``running_var`` with the unbiased variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum):
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.float()
+        var_r, mean_r = torch.var_mean(xf, dims, unbiased=False)
+        stats = xf.new_zeros((sharding.world(), 3, x.shape[1]))
+        stats[sharding.rank(), 0] = x.numel() // x.shape[1]
+        stats[sharding.rank(), 1] = mean_r
+        stats[sharding.rank(), 2] = var_r
+        n_r, mean_r, var_r = sharding.all_reduce_sum(stats).unbind(1)
+        n = n_r.sum(0)
+        mean = (n_r * mean_r).sum(0) / n
+        var = (n_r * (var_r + (mean_r - mean) ** 2)).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        out = (xf - mean.view(shape)) * invstd.view(shape) \
+            * weight.view(shape) + bias.view(shape)
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(var, alpha=momentum)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        dims = [d for d in range(x.dim()) if d != 1]
+        g = grad_out.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_g = g.sum(dims)
+        sum_gx = (g * xhat).sum(dims)
+        sums = sharding.all_reduce_sum(torch.stack([sum_g, sum_gx]))
+        grad_x = (weight * invstd).view(shape) * (
+            g - (sums[0] / n).view(shape) - xhat * (sums[1] / n).view(shape))
+        return (grad_x.to(x.dtype), sum_gx, sum_g, None, None, None, None)
 
 
 class ConvBN(nn.Module):

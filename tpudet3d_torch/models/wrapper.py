@@ -21,6 +21,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.sharding import local_rows, world
 from .layers import global_pool, linear
 
 __all__ = ['MultiHeadRegressor', 'MAX_CLASSES', 'dropout']
@@ -40,7 +41,10 @@ def dropout(x, rate, generator):
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    # under a process group the mask is drawn for the global batch and
+    # this process keeps its rows, as one process over that batch
+    u = local_rows(torch.rand((x.shape[0] * world(), *x.shape[1:]),
+                              generator=generator, device=generator.device))
     return torch.where(u.to(x.device) < keep, x / keep, 0.0)
 
 

@@ -10,10 +10,18 @@ timestamped log in ``output_dir`` beside ``dumped_config.py``, resume
 validation every ``eval_freq`` epochs with the 3D IoU on the last one
 only, and the visual test at the end; ``regime.type='evaluation'`` only
 validates.  ``--device`` defaults to the card.  As in the reference,
-passing ``--wo_saving_checkpoint`` turns saving off.
+passing ``--wo_saving_checkpoint`` turns saving off.  Data parallel under
+torchrun (one process a card; the config's batch sizes are global, as the
+JAX package's mesh shards them):
+
+    torchrun --nproc_per_node N -m tpudet3d_torch.tools.main \
+        --config configs/scene_regressor_el0_ema.py
+
+Rank 0 prints, logs and saves; every rank resumes.
 """
 
 import argparse
+import os
 import os.path as osp
 import sys
 import time
@@ -25,6 +33,7 @@ from ..core import (Logger, check_isfile, merge_cli_overrides,
                     mkdir_if_missing, read_py_config, set_random_seed)
 from ..data.loader import _make_dataset
 from ..eval.evaluator import Evaluator
+from ..parallel import sharding
 from ..train import param_count
 from ..train.pipeline import setup_training
 from ..train.trainer import Trainer
@@ -65,20 +74,25 @@ def main(argv=None):
 
     log_name = 'train.log' if cfg.regime.type == 'training' else 'test.log'
     log_name += time.strftime('-%Y-%m-%d-%H-%M-%S')
+    device = sharding.maybe_init_distributed(cfg, args.device)
+    main_process = sharding.is_main_process()
     mkdir_if_missing(cfg.output_dir)
     stdout = sys.stdout
-    sys.stdout = Logger(osp.join(cfg.output_dir, log_name))
+    sys.stdout = (Logger(osp.join(cfg.output_dir, log_name)) if main_process
+                  else open(os.devnull, 'w'))
     try:
-        copyfile(args.config, osp.join(cfg.output_dir, 'dumped_config.py'))
-        run(cfg, args)
+        if main_process:
+            copyfile(args.config, osp.join(cfg.output_dir,
+                                           'dumped_config.py'))
+        run(cfg, args, device)
     finally:
         sys.stdout.close()
         sys.stdout = stdout
 
 
-def run(cfg, args):
+def run(cfg, args, device=None):
     seed = set_random_seed(int(cfg.utils.random_seeds))
-    pipe = setup_training(cfg, device=args.device, seed=seed)
+    pipe = setup_training(cfg, device=device or args.device, seed=seed)
     print(f'device: {pipe.device}'
           + (f' ({torch.cuda.get_device_name(pipe.device)})'
              if pipe.device.type == 'cuda' else ''))
@@ -95,7 +109,8 @@ def run(cfg, args):
                 raise RuntimeError("the checkpoint isn't found or can't be loaded!")
             state = load_pretrained_weights(state, cfg.model.load_weights)
 
-    writer = make_writer(cfg.output_dir)
+    writer = (make_writer(cfg.output_dir) if sharding.is_main_process()
+              else None)
     train_step_counter = ((start_epoch - 1) * len(pipe.train_loader)
                           if start_epoch > 1 else 0)
     trainer = Trainer(train_step=pipe.train_step,

@@ -17,11 +17,19 @@ unless ``augment.expand_crop`` is false; validation (mAP@0.5 through K3)
 runs every ``save_freq`` epochs and on the last, on a quarter of the
 training source at other seeds (at least 8 items) or the COCO ``test``
 split when there is one.  Stdout is teed to a timestamped
-``det_train.log`` in the output directory.  One card; ``--device``
-defaults to it.
+``det_train.log`` in the output directory.  ``--device`` defaults to the
+card.  Data parallel under torchrun (one process a card; the config's
+batch sizes are global):
+
+    torchrun --nproc_per_node N -m tpudet3d_torch.tools.train_detector \
+        --config configs/detection/mnv2_ssd_300_scene_cascade.py
+
+Rank 0 prints, logs and saves; validation gathers every rank's
+detections before AP.
 """
 
 import argparse
+import os
 import os.path as osp
 import sys
 import time
@@ -33,7 +41,6 @@ import torch
 
 from ..core import (DETECTOR_CLASSES, Logger, mkdir_if_missing,
                     read_py_config, set_random_seed)
-from ..core.device import resolve_device
 from ..data.det_host_transforms import build_detection_host_pipeline
 from ..data.det_transforms import build_detector_augmentations
 from ..data.detection_dataset import DetectionDataset, SyntheticDetection
@@ -41,6 +48,7 @@ from ..data.loader import BatchLoader
 from ..detect import DetectorEvaluator, SSDDetector
 from ..detect.train import (DetectorTrainer, create_detector_state,
                             make_detector_train_step, warmup_step_lr)
+from ..parallel import sharding
 from ..train.pipeline import HostToDevice
 from ..utils.checkpoint import latest_snapshot, resume_from
 
@@ -106,9 +114,9 @@ class DetRun:
 
 def setup(cfg, device=None, resume=''):
     """Everything a run of ``cfg`` needs, on ``device`` (the card unless
-    ``'cpu'``); ``resume`` is a snapshot or ``'auto'`` (the newest in
-    ``cfg.output_dir``)."""
-    device = resolve_device(device)
+    ``'cpu'``; under a process group this process's card); ``resume`` is
+    a snapshot or ``'auto'`` (the newest in ``cfg.output_dir``)."""
+    device = sharding.maybe_init_distributed(cfg, device)
     seed = set_random_seed(int(cfg.utils.random_seeds))
     dtype = torch.bfloat16 if cfg.model.get('bf16', False) else torch.float32
     model = SSDDetector(num_classes=int(cfg.model.num_classes),
@@ -133,12 +141,13 @@ def setup(cfg, device=None, resume=''):
         input_size=int(cfg.input_size),
         enable=bool(cfg.augment.get('expand_crop', True)), seed=seed)
     threads = int(cfg.data.num_workers)
-    loader = _DetBatchLoader(train_ds, int(cfg.data.train_batch_size),
-                             shuffle=True, drop_last=True,
-                             num_threads=threads, host_transform=host_aug)
+    loader = _DetBatchLoader(
+        train_ds, sharding.local_batch(int(cfg.data.train_batch_size)),
+        shuffle=True, drop_last=True, num_threads=threads,
+        host_transform=host_aug)
     val_loader = None if val_ds is None else _DetBatchLoader(
-        val_ds, int(cfg.data.val_batch_size), shuffle=False,
-        num_threads=threads)
+        val_ds, sharding.local_batch(int(cfg.data.val_batch_size)),
+        shuffle=False, num_threads=threads)
     lr_fn = warmup_step_lr(base_lr=float(cfg.optim.lr),
                            warmup_iters=int(cfg.scheduler.warmup_iters),
                            warmup_ratio=float(cfg.scheduler.warmup_ratio),
@@ -172,15 +181,23 @@ def validate(run, epoch, add_batch=None):
     """mAP@0.5 of the trainer's state over the validation loader, the EMA
     when the state keeps one; prints and returns ``results()``.
     ``add_batch(evaluator, imgs, boxes, labels, valid)`` stands in for
-    ``evaluator.add_batch``."""
+    ``evaluator.add_batch``.  Under a process group each rank scores its
+    own images (the padding of a short last batch left out) and AP runs
+    over every rank's."""
     state = run.trainer.state
     evaluator = DetectorEvaluator(run.model, params=state.ema_params)
     add = add_batch or (lambda ev, *batch: ev.add_batch(*batch))
-    for imgs, boxes, labels, valid, _n in run.val_loader:
+    grouped = sharding.world() > 1
+    for imgs, boxes, labels, valid, n in run.val_loader:
+        if grouped:
+            imgs, boxes, labels, valid = (a[:n] for a in
+                                          (imgs, boxes, labels, valid))
         imgs_d = torch.from_numpy(imgs).to(run.device, non_blocking=True)
         imgs_d, _ = run.test_aug(imgs_d, None)
         add(evaluator, imgs_d, boxes, labels, valid)
     res = evaluator.results()
+    if not sharding.is_main_process():
+        return res
     per_cls = ' '.join(f'{DETECTOR_CLASSES[c]}:{res[c]:.3f}'
                        for c in range(len(DETECTOR_CLASSES)))
     print(f'val epoch {epoch}: mAP@0.5 {res["mAP"]:.4f} ({per_cls})',
@@ -217,11 +234,12 @@ def main(argv=None):
         cfg.train_cfg.loss_balancing = args.loss_balancing == 'on'
     if args.max_epochs:
         cfg.data.max_epochs = args.max_epochs
-    device = resolve_device(args.device)
+    device = sharding.maybe_init_distributed(cfg, args.device)
     mkdir_if_missing(cfg.output_dir)
     stdout = sys.stdout
-    sys.stdout = Logger(osp.join(cfg.output_dir, 'det_train.log'
-                                 + time.strftime('-%Y-%m-%d-%H-%M-%S')))
+    sys.stdout = (Logger(osp.join(cfg.output_dir, 'det_train.log'
+                                  + time.strftime('-%Y-%m-%d-%H-%M-%S')))
+                  if sharding.is_main_process() else open(os.devnull, 'w'))
     try:
         run = setup(cfg, device, args.resume)
         max_epochs = int(cfg.data.max_epochs)

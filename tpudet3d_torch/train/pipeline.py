@@ -2,20 +2,23 @@
 ``tpudet3d/train/pipeline.py``): model, loss manager, optimizer and
 schedule, the train state, the train step with the device augmentations
 fused in, the eval step, the test augmentations, the host-to-card mover
-and the loaders.  One card: the JAX package's mesh has no counterpart
-yet (``ROADMAP.md`` Queue 1 item 3).
+and the loaders.  A reference checkpoint named by the config is loaded
+(``utils/torch_import.py``).  The config's ``data_parallel`` (or torchrun's
+environment) joins a process group (``parallel/``): each process drives
+one device and reads its share of the global batch.
 """
 
-import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
 from ..data.loader import build_loader
 from ..data.transforms import build_augmentations
+from ..parallel.sharding import maybe_init_distributed
+from ..utils.torch_import import (load_torch_checkpoint_into,
+                                  resolve_pretrained_path)
 from .optim import build_scheduler
 from .state import create_train_state
 from .steps import make_eval_step, make_train_step
@@ -83,64 +86,50 @@ class TrainingPipeline:
     test_loader: Any = None
 
 
-def resolve_pretrained_path(model_name, pretrained):
-    """``cfg.model.pretrained`` → a local checkpoint path or None: an
-    explicit path, or with ``True`` ``$TPUDET3D_PRETRAINED_DIR`` then
-    ``./pretrained/`` for ``{model_name}.pth``."""
-    if isinstance(pretrained, str) and pretrained:
-        return pretrained if os.path.isfile(pretrained) else None
-    if not pretrained:
-        return None
-    candidates = []
-    root = os.environ.get('TPUDET3D_PRETRAINED_DIR')
-    if root:
-        candidates.append(os.path.join(root, f'{model_name}.pth'))
-    candidates.append(os.path.join('pretrained', f'{model_name}.pth'))
-    for c in candidates:
-        if os.path.isfile(c):
-            return c
-    return None
-
-
-def _check_reference_weights(cfg):
-    """``model.pretrained`` or a ``.pth`` ``model.load_weights`` name a
-    reference (ImageNet) checkpoint.  With no local file the run trains
-    from random init, as the JAX package's does; a found file needs the
-    native loader that is still to be ported.  A port snapshot as
-    ``load_weights`` is the CLI's to load."""
+def _maybe_import_torch_weights(cfg, state):
+    """Load the reference (ImageNet) checkpoint that ``model.pretrained``
+    or a ``.pth`` ``model.load_weights`` names into the state's model
+    (``utils/torch_import.py``, the JAX package's matcher).  With no local
+    file the run trains from random init, as the JAX package's does;
+    ``model.resume`` or a port snapshot (``snap_N.pt``) as
+    ``load_weights`` are the CLI's to load.  An EMA restarts from the
+    loaded weights (the JAX package's keeps its random init)."""
     if cfg.model.get('resume'):
-        return
+        return state
     lw = str(cfg.model.get('load_weights') or '')
     if lw.endswith('.pth'):
         path = lw
     else:
         if lw:
-            return
+            return state
         pretrained = cfg.model.get('pretrained', False)
         if not pretrained:
-            return
+            return state
         path = resolve_pretrained_path(cfg.model.name, pretrained)
         if path is None:
             print(f'WARNING: model.pretrained={pretrained!r} but no local '
                   f'torch checkpoint found (set $TPUDET3D_PRETRAINED_DIR or '
                   f'place pretrained/{cfg.model.name}.pth); '
                   f'training from random init')
-            return
-    raise NotImplementedError(
-        f'loading the reference checkpoint {path} is not ported yet '
-        f'(ROADMAP.md Queue 1 item 4)')
+            return state
+    load_torch_checkpoint_into(state.model, path)
+    if state.ema_params is not None:
+        with torch.no_grad():
+            for k, p in state.model.named_parameters():
+                state.ema_params[k].copy_(p)
+    return state
 
 
 def setup_training(cfg, device=None, seed=None, with_loaders=True):
-    """The pipeline on ``device`` (the card unless ``'cpu'``); ``seed``
-    (default ``cfg.utils.random_seeds``) seeds the model's init and the
-    loaders."""
-    device = resolve_device(device)
+    """The pipeline on ``device`` (the card unless ``'cpu'``; under a
+    process group this process's card); ``seed`` (default
+    ``cfg.utils.random_seeds``) seeds the model's init and the loaders."""
+    device = maybe_init_distributed(cfg, device)
     if seed is None:
         seed = int(cfg.utils.random_seeds or 5)
-    _check_reference_weights(cfg)
     state = create_train_state(cfg, device=device,
                                generator=torch.Generator().manual_seed(seed))
+    state = _maybe_import_torch_weights(cfg, state)
     train_aug, test_aug = build_augmentations(cfg)
     pipe = TrainingPipeline(
         model=state.model, loss_manager=state.loss_manager,

@@ -10,6 +10,7 @@ tensor.  The eval step gives the per-class sums of ADD, SADD, 3D IoU
 
 import torch
 
+from ..parallel import sharding
 from ..eval.metrics import NUM_KEYPOINTS, _metrics_segments, add_sadd_per_sample
 
 __all__ = ['make_train_step', 'make_eval_step']
@@ -46,6 +47,7 @@ def make_train_step(model, loss_manager, optimizer, augment_fn=None,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         loss.backward()
+        sharding.all_reduce_mean([p.grad for p in params])
         optimizer.step()
         if ema_decay > 0:
             ema = list(state.ema_params.values())
@@ -58,6 +60,7 @@ def make_train_step(model, loss_manager, optimizer, augment_fn=None,
             metrics = torch.stack([loss.detach().float(),
                                    add_sum.mean() / NUM_KEYPOINTS,
                                    sadd_sum.mean() / NUM_KEYPOINTS, acc])
+            sharding.all_reduce_mean([metrics])
         state.step += 1
         return state, metrics
 

@@ -4,6 +4,9 @@ The loop body enqueues a step (the device augmentations fused in) and
 then reads the previous step's ``[loss, ADD, SADD, acc]``: each step's
 metrics are copied to pinned memory behind an event, and the host waits
 on that event one step later, while the card runs the next step.
+Under a process group the metrics are the global batch's on every rank;
+rank 0 prints, writes the scalars and saves, and the others wait for the
+snapshot at a barrier.
 """
 
 import datetime
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import AverageMeter
+from ..parallel import sharding
 from ..utils.checkpoint import save_snap
 from .optim import current_learning_rate, set_learning_rate
 
@@ -77,6 +81,7 @@ class Trainer:
         lr = current_learning_rate(self.state.optimizer)
 
         num_iters = len(self.train_loader)
+        main = sharding.is_main_process()
         start = time.time()
         late = LateReader()
         pending = None  # (handle, batch size, step) — read one step late
@@ -94,7 +99,7 @@ class Trainer:
             add_m.update(float(m[1]), bs)
             sadd_m.update(float(m[2]), bs)
             acc_m.update(float(m[3]), bs)
-            if self.writer is not None:
+            if self.writer is not None and main:
                 self.writer.add_scalar('Train/loss', float(m[0]),
                                        global_step=step_idx)
                 self.writer.add_scalar('Train/ADD', add_m.avg,
@@ -118,7 +123,7 @@ class Trainer:
             nb_future = (self.max_epoch - (epoch + 1)) * num_iters
             eta = str(datetime.timedelta(
                 seconds=int(batch_time.avg * (nb_this + nb_future))))
-            if it % self.print_freq == 0 or it == num_iters - 1:
+            if main and (it % self.print_freq == 0 or it == num_iters - 1):
                 print(f'epoch: [{epoch}/{self.max_epoch}][{it}/{num_iters}]\t'
                       f'time {batch_time.val:.3f} ({batch_time.avg:.3f})\t'
                       f'eta {eta}\t'
@@ -135,5 +140,7 @@ class Trainer:
             drain(pending)
         if self.save_chkpt and (epoch % self.save_freq == 0 or is_last_epoch) \
                 and not self.debug:
-            save_snap(self.state, epoch, self.log_path)
+            if main:
+                save_snap(self.state, epoch, self.log_path)
+            sharding.barrier()
         return self.state
