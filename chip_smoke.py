@@ -150,6 +150,33 @@ Phases, each fatal on failure:
    ``utils/profiling.trace`` around a serving call naming K1–K4's
    kernels, ``tools/optuna_optim.py`` for 2 trials of 1 epoch at batch
    128 on synthetic items.
+12. The card against the JAX package's golden record
+   (``tests/fixtures/torch_port_golden``, written by
+   ``tests/torch_port_golden.py`` on the CPU): every weight, frame and
+   training item remade from its manifest by ``utils/golden.py`` and
+   checked against its sha256; (A) the default build and (B) the cascade
+   with EfficientNet-lite0, bf16, through ``infer_batch``, the engine's
+   ``_detect`` (logits, deltas) and ``_heads`` on the JAX engine's crop
+   boxes, K3 on JAX's own detector outputs, the engine's second stage
+   (crop boxes, heads, K4's packed rows) on JAX's detections; (C) both
+   int8 on the record's scales, and ``calibrate_engine`` on the
+   detections JAX's calibration cropped; (D) the regressor's bf16 and
+   float32 train steps and its eval step with the IoU; (E) the cascade
+   detector's bf16 train step (reported), its float32 training forward,
+   and the gradient of its loss on JAX's float32 forward outputs carried
+   back through the float32 network; TF32 off. Each output is held by
+   ``utils/golden.py``'s rules against JAX's with JAX's next precision
+   as the yardstick (bf16 against float32, int8 against bf16, float32
+   against float64; the free-running rows, the port's calibration on its
+   own detections, the loss terms and E's bf16 gradient are reported),
+   in one JSON line of every error beside its yardstick, fatal on any
+   miss; every run's launches
+   are exactly the path's own (one K1 and K3 a batch, one K2 and K4 a
+   regress pass, one K6 and K7 a quantized conv, one K5 an eval batch
+   with the IoU). Then both training CLIs through
+   ``torch.distributed.run`` with one process: an NCCL group of one from
+   torchrun's environment, rank 0's log, one snapshot resumed bit for
+   bit.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1168,11 +1195,13 @@ def write_snapshots(root):
 
 def drive(wrappers, fn):
     """``fn()`` with the launch counts set to 0 just before it; returns its
-    result and the counts read just after it."""
+    result and the counts read just after it (on the CPU the wrappers
+    count nothing)."""
     for f in wrappers:
         f.launches = 0
     out = fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return out, [f.launches for f in wrappers]
 
 
@@ -3794,6 +3823,623 @@ def parallel_path(dev, wrappers, frames_np, plain, norm, gpu):
                 launches=launches)
 
 
+# phase 12: the card against the JAX package's golden record of the bf16
+# and int8 product route (tests/fixtures/torch_port_golden, written by
+# tests/torch_port_golden.py): every input remade from its manifest
+GOLDEN_ROOT = 'tests/fixtures/torch_port_golden'
+# reported, not gated: the free-running engine's rows (random weights
+# leave the detector's top scores on a plateau, where JAX's own bf16 and
+# float32 rows part), the port's calibration on its own detections
+# (crops of other boxes where the rows part), and JAX's calibration with
+# its crops in float32 beside its own in bf16 (the size of that cast)
+GOLDEN_REPORTED = ('rows', 'scales', 'jax_f32_crops_vs_bf16_crops')
+
+
+def golden_inputs(manifest):
+    """The frames, remade and checked against the manifest's digest."""
+    from tpudet3d_torch.utils import golden
+    fr = manifest['frames']
+    frames = golden.golden_frames(fr['n'], fr['h'], fr['w'], fr['seed'])
+    expect(golden.digest(frames) == fr['sha256'],
+           'the golden frames are not remade bit for bit')
+    return frames
+
+
+def golden_variables(spec, arrays):
+    """A model's Flax-named numpy variables, remade with the record's
+    calibrated statistics and checked."""
+    from tpudet3d_torch.utils import golden
+    v = golden.remake_variables(spec['leaves'], spec['seed'],
+                                arrays[spec['stats']])
+    expect(golden.tree_digest(v) == spec['sha256'],
+           f'the golden weights of {spec["source"]} are not remade bit '
+           'for bit')
+    return v
+
+
+def golden_module(spec, dtype, arrays):
+    """The port's module of a manifest model, float32 parameters, compute
+    in ``dtype``, the remade weights loaded."""
+    from tpudet3d_torch.core import AttrDict
+    from tpudet3d_torch.detect import SSDDetector
+    from tpudet3d_torch.models import build_model
+    from tpudet3d_torch.utils.convert import load_jax_variables
+    if spec['kind'] == 'detector':
+        module = SSDDetector(num_classes=9, width_mult=spec['width_mult'],
+                             dtype=dtype, cascade=spec['cascade'])
+    else:
+        module = build_model(AttrDict(model=dict(
+            name=spec['name'], num_classes=9, bf16=False)), dtype=dtype)
+    return load_jax_variables(module, golden_variables(spec, arrays))
+
+
+def golden_engine(manifest, arrays, case, dev, scales=None):
+    from tpudet3d_torch.infer import EngineConfig, TwoStageEngine
+    s = manifest['serving'][case]
+    kw = dict(manifest['engine'], crop_size=tuple(
+        manifest['engine']['crop_size']), expand_ratio=tuple(
+        manifest['engine']['expand_ratio']))
+    if scales is not None:
+        kw.update(det_int8_scales=scales['det'], reg_int8_scales=scales['reg'])
+    models = manifest['models']
+    return TwoStageEngine(
+        golden_module(models[s['detector']], torch.bfloat16, arrays).eval(),
+        golden_module(models[s['regressor']], torch.bfloat16,
+                      arrays).eval(),
+        EngineConfig(**kw), device=dev)
+
+
+def golden_dets(engine, logits, deltas, ref, wrappers):
+    """K3 through the engine's decode settings on JAX's detector outputs,
+    against JAX's decode of them; ``(rule, launches)``."""
+    from tpudet3d_torch.detect import decode_detections
+    from tpudet3d_torch.utils import golden
+    lg, dl = (torch.from_numpy(x).to(engine.device) for x in (logits, deltas))
+    dets, launches = drive(wrappers, lambda: decode_detections(
+        lg, dl, engine.anchors, **engine.decode_kwargs()))
+    return golden.dets_rule(dets, ref), launches
+
+
+def golden_scales_err(got, ref, ref_f32):
+    """Calibrated scales (``{'det': ..., 'reg': ...}``) against JAX's, with
+    JAX's float32 build's scales as the yardstick; ``ok`` when both stages
+    meet the rule."""
+    from tpudet3d_torch.utils import golden
+    out = {}
+    for stage in ('det', 'reg'):
+        keys = sorted(ref[stage])
+        expect(sorted(got[stage]) == keys,
+               f'calibrated {stage} convs differ from the JAX package\'s')
+        out[stage] = golden.continuous_rule(
+            [got[stage][k] for k in keys], [ref[stage][k] for k in keys],
+            [ref_f32[stage][k] for k in keys])
+    out['ok'] = out['det']['ok'] and out['reg']['ok']
+    return out
+
+
+def golden_regress(engine, frames, dets, wrappers):
+    """The engine's second stage (crop boxes, refine passes, heads, K4's
+    packing) on the detections ``dets [N,max_det,6]``, as ``infer_batch``
+    unpacks it: ``(rows, launches)``."""
+    from tpudet3d_torch.infer.engine import _unpack, upload
+    n, h, w = frames.shape[:3]
+    up = upload(frames, engine.device)
+    d = torch.from_numpy(dets).to(engine.device)
+    packed, launches = drive(wrappers, lambda: engine._regress(
+        up, d, engine._crop_boxes(d, h, w, engine.cfg.crop_margin_px), h,
+        w, engine.cfg.refine_margin_px))
+    packed = packed.cpu().numpy()
+    return [_unpack(p[np.nonzero(p[:, 25] > 0)[0]]) for p in packed], \
+        launches
+
+
+def golden_serving(manifest, arrays, case, dev, wrappers, count):
+    """Cases A/B and their int8 half (C) on ``dev``: the engine's rows,
+    the detector's logits and deltas and the regressor's outputs on the
+    JAX engine's crop boxes, bf16 and int8, against the record."""
+    from tpudet3d_torch.infer.engine import upload
+    from tpudet3d_torch.infer.quant import calibrate_engine
+    from tpudet3d_torch.utils import golden
+    frames = golden_inputs(manifest)
+    n, h, w = frames.shape[:3]
+    boxes = torch.from_numpy(arrays[f'{case}/boxes']).to(dev)
+    a = {k: arrays[f'{case}/{k}'] for k in (
+        'bf16/rows', 'f32/rows', 'bf16/det_logits', 'f32/det_logits',
+        'bf16/det_deltas', 'f32/det_deltas', 'bf16/pre', 'f32/pre',
+        'bf16/cls', 'f32/cls')}
+    res, launches = {}, {}
+
+    def outputs(engine, what):
+        rows, launches[f'{case} {what} infer_batch'] = drive(
+            wrappers, lambda: engine.infer_batch(frames))
+        up = upload(frames, dev)
+        (_, logits, deltas, _, _), launches[f'{case} {what} detect'] = \
+            drive(wrappers, lambda: engine._detect(
+                up, h, w, engine.cfg.crop_margin_px))
+        with torch.no_grad():
+            (pre, cls), launches[f'{case} {what} heads'] = drive(
+                wrappers, lambda: engine._heads(up, boxes))
+        return rows, logits, deltas, pre, cls
+
+    engine = golden_engine(manifest, arrays, case, dev)
+    rows, logits, deltas, pre, cls = outputs(engine, 'bf16')
+    rule = golden.continuous_rule
+    res['det_logits'] = rule(logits, a['bf16/det_logits'],
+                             a['f32/det_logits'])
+    res['det_deltas'] = rule(deltas, a['bf16/det_deltas'],
+                             a['f32/det_deltas'])
+    res['pre'] = rule(pre, a['bf16/pre'], a['f32/pre'])
+    res['cls'] = rule(cls, a['bf16/cls'], a['f32/cls'])
+    res['rows'] = golden.rows_rule(rows, golden.unpack_rows(a['bf16/rows']),
+                                   golden.unpack_rows(a['f32/rows']))
+    # K3, the engine's own decode stage, on JAX's detector outputs
+    res['dets'], launches[f'{case} bf16 decode'] = golden_dets(
+        engine, a['bf16/det_logits'], a['bf16/det_deltas'],
+        arrays[f'{case}/bf16/dets'], wrappers)
+    # the second stage on JAX's detections: every row pairs
+    dets = arrays[f'{case}/bf16/dets']
+    regress, launches[f'{case} bf16 regress'] = golden_regress(
+        engine, frames, dets, wrappers)
+    res['regress_rows'] = golden.rows_rule(
+        regress, golden.unpack_rows(arrays[f'{case}/bf16/regress_rows']),
+        golden.unpack_rows(arrays[f'{case}/f32/regress_rows']))
+
+    # int8: the port's calibration on the detections JAX's calibration
+    # cropped, against JAX's scales (gated); JAX's own with its crops in
+    # float32, as the port crops, beside them (the size of that cast) and
+    # the port's calibration on its own detections (both reported); then
+    # JAX's scales served
+    ref = manifest['int8'][case]
+    scales, launches[f'{case} calibrate'] = drive(
+        wrappers, lambda: calibrate_engine(engine, frames))
+    on_jax = calibrate_engine(engine, frames,
+                              dets=list(arrays[f'C/{case}/calib_dets']))
+    int8 = dict(scales_on_jax_dets=golden_scales_err(
+        dict(zip(('det', 'reg'), on_jax)), ref['bf16'], ref['f32']))
+    int8['jax_f32_crops_vs_bf16_crops'] = golden_scales_err(
+        ref['bf16_f32_crops'], ref['bf16'], ref['f32'])
+    int8['scales'] = golden_scales_err(dict(zip(('det', 'reg'), scales)),
+                                       ref['bf16'], ref['f32'])
+    q = golden_engine(manifest, arrays, case, dev, ref['bf16'])
+    rows8, logits8, deltas8, pre8, cls8 = outputs(q, 'int8')
+    c = {k: arrays[f'C/{case}/{k}'] for k in (
+        'rows', 'pre', 'cls', 'det_logits', 'det_deltas')}
+    int8['det_logits'] = rule(logits8, c['det_logits'],
+                              a['bf16/det_logits'])
+    int8['det_deltas'] = rule(deltas8, c['det_deltas'],
+                              a['bf16/det_deltas'])
+    int8['pre'] = rule(pre8, c['pre'], a['bf16/pre'])
+    int8['cls'] = rule(cls8, c['cls'], a['bf16/cls'])
+    int8['rows'] = golden.rows_rule(rows8, golden.unpack_rows(c['rows']),
+                                    golden.unpack_rows(a['bf16/rows']))
+    int8['dets'], launches[f'{case} int8 decode'] = golden_dets(
+        q, c['det_logits'], c['det_deltas'], arrays[f'C/{case}/dets'],
+        wrappers)
+    regress8, launches[f'{case} int8 regress'] = golden_regress(
+        q, frames, dets, wrappers)
+    int8['regress_rows'] = golden.rows_rule(
+        regress8, golden.unpack_rows(arrays[f'C/{case}/regress_rows']),
+        golden.unpack_rows(arrays[f'{case}/bf16/regress_rows']))
+    if count:
+        from tpudet3d_torch.infer import quant
+        n_det = len(quant.quantized_conv_paths(q.det_model))
+        n_reg = len(quant.quantized_conv_paths(q.reg_model))
+        with_rows = sum(len(r['scores']) > 0 for r in rows)
+        passes = int(q.cfg.refine_passes) + 1
+        want = {'bf16 infer_batch': [1, passes, 1, passes, 0, 0, 0],
+                'bf16 decode': [0, 0, 1, 0, 0, 0, 0],
+                'int8 decode': [0, 0, 1, 0, 0, 0, 0],
+                'bf16 detect': [1, 0, 1, 0, 0, 0, 0],
+                'bf16 heads': [0, 1, 0, 0, 0, 0, 0],
+                'bf16 regress': [0, passes, 0, passes, 0, 0, 0],
+                'calibrate': [n, with_rows, 1, 0, 0, 0, 0],
+                'int8 infer_batch': [1, passes, 1, passes, 0,
+                                     n_det + passes * n_reg,
+                                     n_det + passes * n_reg],
+                'int8 detect': [1, 0, 1, 0, 0, n_det, n_det],
+                'int8 heads': [0, 1, 0, 0, 0, n_reg, n_reg],
+                'int8 regress': [0, passes, 0, passes, 0, passes * n_reg,
+                                 passes * n_reg]}
+        for run, n_k in want.items():
+            expect(launches[f'{case} {run}'] == n_k,
+                   f'phase 12 {case} {run}: launches '
+                   f'{launches[f"{case} {run}"]}, the path\'s own {n_k}')
+    return res, int8, launches
+
+
+def golden_regressor_step(manifest, arrays, case, dev, wrappers, count):
+    """Case D on ``dev``: the eval step's sums with the IoU on the initial
+    state, then one train step (``tpudet3d_torch.train``) in bf16 and one
+    in float32.  Returns the rules, the launches and the port's flat
+    gradients by record key."""
+    from tpudet3d_torch.utils import golden
+    spec = manifest['train'][case]
+    mspec = manifest['models'][spec['model']]
+    items = golden.regressor_items(spec['batch'], spec['size'],
+                                   spec['items_seed'])
+    expect(golden.digest(*items) == spec['sha256'],
+           f'the items of case {case} are not remade bit for bit')
+    batch = [torch.from_numpy(x).to(dev) for x in items]
+    res, launches, grads = {}, {}, {}
+    for prec, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        terms, grads[f'{prec}/grad'], update, n, sums = golden_regressor_run(
+            spec, mspec, arrays, batch, dtype, dev, wrappers, prec == 'bf16')
+        launches.update({f'{case} {prec} {k}': v for k, v in n.items()})
+        if prec == 'bf16':
+            res.update(golden_step_report(arrays, case, mspec['leaves'],
+                                          spec['sketch_seed'], terms,
+                                          grads['bf16/grad'], update))
+            got = torch.stack([x.double().cpu() for x in sums]).numpy()
+            ref = arrays[f'{case}/bf16/eval']
+            ref32 = arrays[f'{case}/f32/eval']
+            res['eval'] = golden.continuous_rule(got[:3], ref[:3], ref32[:3])
+            res['eval_counts_equal'] = bool(np.array_equal(got[4], ref[4]))
+            res['eval_acc'] = dict(port=got[3].tolist(), jax=ref[3].tolist(),
+                                   jax_f32=ref32[3].tolist())
+        else:
+            res['f32_terms'] = golden.continuous_rule(
+                terms[1:4], arrays[f'{case}/f32/terms'][1:4],
+                arrays[f'{case}/f64/terms'])
+    res.update(golden_grad_rules(arrays, case, mspec['leaves'],
+                                 spec['sketch_seed'], grads))
+    if count:
+        want = {'bf16 eval': [0, 0, 0, 0, 1, 0, 0]}
+        for k, v in launches.items():
+            expect(v == want.get(k[len(case) + 1:], [0] * 7),
+                   f'phase 12 {k}: launches {v}; the path\'s own: one K5 '
+                   'in the eval step')
+    res['ok'] = bool(res['grads_ok'] and res['eval']['ok']
+                     and res['eval_counts_equal'])
+    return res, launches, grads
+
+
+def golden_regressor_run(spec, mspec, arrays, batch, dtype, dev, wrappers,
+                         evaluate):
+    """One train step of case D's regressor computing in ``dtype`` (and,
+    with ``evaluate``, the eval step before it): the loss terms, the flat
+    gradient and update (Flax layout), the launches of each call and the
+    eval step's sums."""
+    from tpudet3d_torch.core import read_py_config
+    from tpudet3d_torch.losses import LossManager, build_loss
+    from tpudet3d_torch.train import (build_optimizer, create_train_state,
+                                      make_eval_step, make_train_step)
+    from tpudet3d_torch.utils import golden
+    cfg = read_py_config(spec['config'])
+    imgs, kp, cats = batch
+    model = golden_module(mspec, dtype, arrays)
+    model.dropout_rate = spec['dropout']
+    terms = []
+
+    def recorded(fn):
+        def crit(*args):
+            out = fn(*args)
+            terms.append(out.detach())
+            return out
+        return crit
+
+    lm = LossManager(tuple([recorded(f) for f in group]
+                           for group in build_loss(cfg)), cfg.loss.coeffs,
+                     cfg.loss.alwa)
+    opt = build_optimizer(cfg, model.parameters())
+    state = create_train_state(model, opt, lm, ema_decay=0.0, device=dev)
+    launches, sums = {}, None
+    if evaluate:
+        (sums, _), launches['eval'] = drive(
+            wrappers, lambda: make_eval_step(model)(None, imgs, kp, cats,
+                                                    compute_iou=True))
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = make_train_step(model, lm, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (state, metrics), launches['step'] = drive(
+        wrappers, lambda: step(state, imgs, kp, cats, gen))
+    m = metrics.double().cpu()
+    got_terms = torch.cat([m[:1], torch.stack(terms).double().cpu(),
+                           m[1:3]]).numpy()
+    named = dict(model.named_parameters())
+    leaves = mspec['leaves']
+    return (got_terms,
+            golden.flax_vector({k: p.grad for k, p in named.items()},
+                               leaves),
+            golden.flax_vector({k: p.detach() - before[k]
+                                for k, p in named.items()}, leaves),
+            launches, sums)
+
+
+def golden_detector_step(manifest, arrays, case, dev, wrappers, count):
+    """Case E on ``dev``: one bf16 step of ``tpudet3d_torch.detect.train``
+    (reported), then the float32 training forward and the gradient of the
+    port's loss on JAX's float32 forward outputs carried back through the
+    float32 network (gated).  Returns the rules, the launches and the
+    port's flat gradients by record key."""
+    from tpudet3d_torch.core import read_py_config
+    from tpudet3d_torch.detect.train import (create_detector_state,
+                                             make_detector_train_step)
+    from tpudet3d_torch.utils import golden
+    spec = manifest['train'][case]
+    mspec = manifest['models'][spec['model']]
+    cfg = read_py_config(spec['config'])
+    items = golden.detector_items(spec['batch'], spec['size'],
+                                  spec['boxes'], spec['items_seed'])
+    expect(golden.digest(*items) == spec['sha256'],
+           f'the items of case {case} are not remade bit for bit')
+    imgs, boxes, labels, valid = (torch.from_numpy(x).to(dev)
+                                  for x in items)
+    model = golden_module(mspec, torch.bfloat16, arrays)
+    state = create_detector_state(model, lr=spec['lr'],
+                                  momentum=float(cfg.optim.momentum),
+                                  wd=float(cfg.optim.wd), device=dev)
+    loss = spec['loss']
+    step = make_detector_train_step(
+        state.model, state.optimizer, use_balance=loss['loss_balancing'],
+        input_size=spec['size'], giou_weight=loss['giou_weight'],
+        cascade_pos_thr=loss['cascade_pos_thr'])
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    (state, metrics), n_step = drive(
+        wrappers, lambda: step(state, imgs, boxes, labels, valid))
+    named = dict(model.named_parameters())
+    leaves = mspec['leaves']
+    grads = {'bf16/grad': golden.flax_vector(
+        {k: p.grad for k, p in named.items()}, leaves)}
+    res = golden_step_report(
+        arrays, case, leaves, spec['sketch_seed'], metrics.double().cpu(),
+        grads['bf16/grad'], golden.flax_vector(
+            {k: p.detach() - before[k] for k, p in named.items()}, leaves))
+    fwd, terms, grads['f32/fixed_grad'], n_fixed = golden_detector_fixed(
+        spec, mspec, arrays, case, (imgs, boxes, labels, valid), dev,
+        wrappers)
+    res['f32_forward'] = fwd
+    res['f32_fixed_terms'] = golden.continuous_rule(
+        terms, arrays[f'{case}/f32/fixed_terms'],
+        arrays[f'{case}/f64/fixed_terms'])
+    res.update(golden_grad_rules(arrays, case, leaves, spec['sketch_seed'],
+                                 grads))
+    launches = {f'{case} bf16 step': n_step, f'{case} f32 fixed': n_fixed}
+    if count:
+        for k, v in launches.items():
+            expect(v == [0] * 7, f'phase 12 {k}: launches {v}, none on the '
+                                 'path')
+    res['ok'] = bool(res['grads_ok'] and fwd['ok'])
+    return res, launches, grads
+
+
+def golden_detector_fixed(spec, mspec, arrays, case, batch, dev, wrappers):
+    """Case E's float32 gates: the training forward's outputs against
+    JAX's, and the gradient of the port's ``ssd_loss`` taken on JAX's
+    float32 forward outputs (so that the mined negatives and the
+    cascade's re-assignment are those of one input) carried back through
+    the port's float32 network.  Returns the forward's rule, the loss
+    terms on JAX's outputs, the flat gradient and the launches."""
+    from tpudet3d_torch.detect.anchors import generate_anchors
+    from tpudet3d_torch.detect.losses import ssd_loss
+    from tpudet3d_torch.utils import golden
+    imgs, boxes, labels, valid = batch
+    model = golden_module(mspec, torch.float32, arrays).to(dev)
+    model.train()
+    names = ('logits', 'deltas', 'deltas2')
+    jax_outs = [torch.from_numpy(arrays[f'{case}/f32/fwd_{k}']).to(dev)
+                .requires_grad_() for k in names]
+    anchors = torch.from_numpy(generate_anchors(spec['size'])).to(dev)
+    loss = spec['loss']
+    total, parts = ssd_loss(
+        jax_outs[0], jax_outs[1], anchors, boxes, labels, valid,
+        cascade_deltas=jax_outs[2], giou_weight=loss['giou_weight'],
+        cascade_pos_thr=loss['cascade_pos_thr'])
+    ct = torch.autograd.grad(total, jax_outs)
+    terms = torch.stack([total, parts['cls_loss'], parts['reg_loss'],
+                         parts['num_pos']]).detach().double().cpu().numpy()
+    params = dict(model.named_parameters())
+
+    def backward():
+        logits, (deltas, deltas2) = model(imgs, train=True)
+        outs = (logits, deltas, deltas2)
+        return outs, torch.autograd.grad(outs, list(params.values()), ct,
+                                         allow_unused=True)
+
+    (outs, g), launches = drive(wrappers, backward)
+    fwd = {k: golden.continuous_rule(
+        o, arrays[f'{case}/f32/fwd_{k}'], arrays[f'{case}/f64/fwd_{k}'])
+        for k, o in zip(names, outs)}
+    fwd['ok'] = all(v['ok'] for v in fwd.values())
+    g = {k: (x if x is not None else torch.zeros_like(p))
+         for (k, p), x in zip(params.items(), g)}
+    return fwd, terms, golden.flax_vector(g, mspec['leaves']), launches
+
+
+# the gated gradients of cases D and E; each is held against JAX's with
+# JAX's next precision as its yardstick.  Case E's bf16 gradient is
+# reported: JAX's own bf16 gradient lies further from its float32 one
+# than the gradient's length, so the rule would pass a zero gradient
+GOLDEN_GATED_GRADS = {'D': ('bf16/grad', 'f32/grad'),
+                      'E': ('f32/fixed_grad',)}
+GOLDEN_NEXT = {'bf16': 'f32', 'f32': 'f64'}
+
+
+def golden_grad_rules(arrays, case, leaves, sketch_seed, grads):
+    """The sketch rule of each gradient in ``grads`` (record key such as
+    ``'f32/grad'`` → the port's flat vector in the Flax layout) against
+    JAX's, with JAX's next precision as its yardstick; ``grads_ok`` over
+    those :data:`GOLDEN_GATED_GRADS` names."""
+    from tpudet3d_torch.utils import golden
+    n = next(iter(grads.values())).size
+    hashed = golden.sketch_hash(n, sketch_seed)
+    out = {}
+    for key, vec in grads.items():
+        prec, name = key.split('/')
+        out[key] = golden.sketch_rule(
+            golden.count_sketch(vec, hashed),
+            arrays[f'{case}/{prec}/{name}_sketch'],
+            arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_sketch'])
+        p = golden.leaf_norms(vec, leaves)
+        j = arrays[f'{case}/{prec}/{name}_norms']
+        j_ref = arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_norms']
+        excess = np.abs(p - j) / (np.abs(j - j_ref) + golden.SLACK * j
+                                  + 1e-30)
+        out[key]['leaf_excess'] = float(excess.max())
+    out['grads_ok'] = all(out[k]['ok'] for k in GOLDEN_GATED_GRADS[case]
+                          if k in out)
+    return out
+
+
+def golden_step_report(arrays, case, leaves, sketch_seed, terms, grad,
+                       update):
+    """The bf16 step's loss terms under the continuous rule and its
+    update's sketch under the sketch rule, reported.  The terms are four
+    to six scalars, each yardstick one draw of JAX's bf16 noise, which can
+    land near 0 by chance; Adam's sign rule makes the update noisier than
+    the gradient."""
+    from tpudet3d_torch.utils import golden
+    hashed = golden.sketch_hash(grad.size, sketch_seed)
+    ref = {p: {k: arrays[f'{case}/{p}/{k}'] for k in (
+        'terms', 'update_sketch', 'update_norms')} for p in ('bf16', 'f32')}
+    res = dict(terms=golden.continuous_rule(terms, ref['bf16']['terms'],
+                                            ref['f32']['terms']),
+               update=golden.sketch_rule(golden.count_sketch(update, hashed),
+                                         ref['bf16']['update_sketch'],
+                                         ref['f32']['update_sketch']))
+    p = golden.leaf_norms(update, leaves)
+    j, j32 = ref['bf16']['update_norms'], ref['f32']['update_norms']
+    excess = np.abs(p - j) / (np.abs(j - j32) + golden.SLACK * j + 1e-30)
+    res['update_leaf_excess'] = float(excess.max())
+    return res
+
+
+def golden_path(dev, wrappers, root=GOLDEN_ROOT):
+    """Phase 12: cases A-E of the golden record on ``dev``.  Prints one JSON
+    line of every value's error beside its yardstick; fatal on any miss.
+    On the card each run's launches must be the path's own."""
+    from tpudet3d_torch.utils import golden
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    count = dev.type == 'cuda'
+    manifest, arrays = golden.load_golden(root)
+    out = dict(serving={}, int8={}, train={}, launches={})
+    for case in sorted(manifest['serving']):
+        res, int8, launches = golden_serving(manifest, arrays, case, dev,
+                                             wrappers, count)
+        out['serving'][case], out['int8'][case] = res, int8
+        out['launches'].update(launches)
+    for case in sorted(manifest['train']):
+        fn = (golden_regressor_step
+              if manifest['train'][case]['kind'] == 'regressor'
+              else golden_detector_step)
+        out['train'][case], launches, _ = fn(manifest, arrays, case, dev,
+                                             wrappers, count)
+        out['launches'].update(launches)
+    misses = []
+    for group in ('serving', 'int8'):
+        for case, res in out[group].items():
+            misses += [f'{group} {case} {k}' for k, v in res.items()
+                       if k not in GOLDEN_REPORTED and not v['ok']]
+    misses += [f'train {case}' for case, res in out['train'].items()
+               if not res['ok']]
+    out['misses'] = misses
+    print('phase 12 golden record: ' + json.dumps(
+        {k: v for k, v in out.items() if k != 'launches'}))
+    expect(not misses, f'phase 12: the port misses the JAX record: {misses}')
+    return out
+
+
+# phase 12b: both training CLIs under torchrun, one process on the card
+TORCHRUN_CLIS = (
+    ('regressor', 'tpudet3d_torch.tools.main', 'configs/scene_regressor.py',
+     ("data.update(synthetic=True, synthetic_length=64, train_batch_size=32,"
+      " val_batch_size=32, max_epochs=1)",
+      "utils.update(save_freq=1, eval_freq=1, print_freq=1)"),
+     'train.log'),
+    ('detector', 'tpudet3d_torch.tools.train_detector',
+     'configs/detection/mnv2_ssd_300_scene_cascade.py',
+     ("data.update(synthetic=True, synthetic_hard=True, synthetic_length=64,"
+      " train_batch_size=16, val_batch_size=16, max_epochs=1)",
+      "utils.update(save_freq=1, print_freq=1)"),
+     'det_train.log'))
+
+
+def same_snapshots(a, b, what):
+    """Expect two loaded snapshots equal bit for bit, key by key."""
+    if isinstance(a, dict):
+        expect(isinstance(b, dict) and a.keys() == b.keys(),
+               f'{what}: keys {sorted(a)} / {sorted(b)}')
+        for k in a:
+            same_snapshots(a[k], b[k], f'{what}.{k}')
+    elif isinstance(a, (list, tuple)):
+        expect(len(a) == len(b), f'{what}: lengths')
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_snapshots(x, y, f'{what}[{i}]')
+    elif isinstance(a, torch.Tensor):
+        expect(torch.equal(a, b), f'{what} differs')
+    else:
+        expect(a == b, f'{what}: {a} / {b}')
+
+
+def cli_state(kind, cfg, dev):
+    """A fresh train state of the CLI's config, for ``resume_from``."""
+    if kind == 'regressor':
+        from tpudet3d_torch.train import create_train_state
+        return create_train_state(cfg, device=dev)
+    from tpudet3d_torch.detect import SSDDetector
+    from tpudet3d_torch.detect.train import create_detector_state
+    model = SSDDetector(num_classes=int(cfg.model.num_classes),
+                        width_mult=float(cfg.model.width_mult),
+                        dtype=torch.bfloat16, cascade=True)
+    return create_detector_state(model, lr=float(cfg.optim.lr),
+                                 momentum=float(cfg.optim.momentum),
+                                 wd=float(cfg.optim.wd), device=dev)
+
+
+def torchrun_clis(dev, tmp):
+    """Each training CLI through ``torch.distributed.run`` with one process
+    on the card, on its config cut to one short epoch of synthetic items
+    (bf16): the NCCL group of one from torchrun's environment in rank 0's
+    log, the log file, one snapshot, and ``resume_from`` of it saved
+    again bit for bit."""
+    import glob
+    import os
+    from tpudet3d_torch.core.config import read_py_config
+    from tpudet3d_torch.utils.checkpoint import resume_from, save_snap
+    out = {}
+    for kind, module, config, overrides, log in TORCHRUN_CLIS:
+        root = os.path.join(tmp, f'torchrun_{kind}')
+        os.makedirs(root)
+        cfg_path = os.path.join(root, 'config.py')
+        with open(cfg_path, 'w') as f:
+            f.write('\n'.join([f'exec(open({os.path.abspath(config)!r})'
+                               '.read())', *overrides, '']))
+        run_dir = os.path.join(root, 'run')
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', '1', '-m', module, '--config', cfg_path,
+             '--output_dir', run_dir], capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        expect(res.returncode == 0, f'torchrun {module}: rc '
+               f'{res.returncode}\n{res.stdout[-3000:]}\n'
+               f'{res.stderr[-3000:]}')
+        logs = glob.glob(os.path.join(run_dir, log + '-*'))
+        expect(len(logs) == 1, f'torchrun {module}: rank 0 logs {logs}')
+        text = open(logs[0]).read()
+        expect('process group: nccl, world 1, rank 0' in text,
+               f'torchrun {module}: no NCCL group of one in the log')
+        snaps = sorted(glob.glob(os.path.join(run_dir, 'snap_*.pt')))
+        expect([os.path.basename(s) for s in snaps] == ['snap_0.pt'],
+               f'torchrun {module}: snapshots {snaps}')
+        cfg = read_py_config(cfg_path)
+        cfg.data_parallel = dict(use_parallel=False)
+        state, start = resume_from(cli_state(kind, cfg, dev), snaps[0])
+        expect(start == 1, f'torchrun {module}: resumed at epoch {start}')
+        again = os.path.join(root, 'again')
+        save_snap(state, 0, again)
+        same_snapshots(*(torch.load(p, map_location='cpu', weights_only=True)
+                         for p in (snaps[0], os.path.join(again,
+                                                          'snap_0.pt'))),
+                       f'torchrun {module} resumed snapshot')
+        out[kind] = dict(seconds=seconds, log=os.path.basename(logs[0]),
+                         snapshot='snap_0.pt', resumed_bit_for_bit=True)
+        print(f'torchrun {module}: NCCL world 1, {out[kind]["log"]}, '
+              f'snap_0.pt resumed bit for bit ({seconds:.1f} s)')
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -3962,6 +4608,14 @@ def run(dev, out_path, iters=20):
         decode_detections_plain, crop_and_resize, head_epilogue,
         head_epilogue_plain), norm, gpu)
     done('11 parallel and tools')
+
+    # 12. the card against the JAX package's golden record of the bf16 and
+    # int8 product route, and both training CLIs under torchrun
+    golden_res = golden_path(dev, wrappers + (iou,) + int8_wrappers)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_res['torchrun'] = torchrun_clis(dev, tmp)
+    done('12 golden record and torchrun')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -4015,6 +4669,8 @@ def run(dev, out_path, iters=20):
                               int8['launches'].items()}
         k['launches_parallel'] = {name: n[i] for name, n in
                                   parallel['launches'].items()}
+        k['launches_golden'] = {name: n[i] for name, n in
+                                golden_res['launches'].items()}
     kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
                       device_ms_n1=k1['device_ms_n1'],
                       library_ms_cold=k1['library_ms_cold'])
@@ -4056,7 +4712,8 @@ def run(dev, out_path, iters=20):
               f"{k['launches_train']} on the training path, "
               f"{k['launches_loop']} on the training loop, "
               f"{k['launches_det']} on detector training, "
-              f"{k['launches_parallel']} on phase 11), max "
+              f"{k['launches_parallel']} on phase 11, "
+              f"{k['launches_golden']} on phase 12), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
     print(gpu)
     print(json.dumps({'kernels': kernels}))
@@ -4067,7 +4724,7 @@ def run(dev, out_path, iters=20):
                        'evaluation': evaluation, 'flagship': flagship,
                        'int8': int8, 'training': training,
                        'loop': loop, 'detector_training': det,
-                       'parallel': parallel,
+                       'parallel': parallel, 'golden': golden_res,
                        'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)

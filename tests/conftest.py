@@ -30,6 +30,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'cuda: needs an NVIDIA GPU and nvcc; skips elsewhere')
+    config.addinivalue_line(
+        'markers', 'slow: minutes of work; tier-1 deselects it')
 
 
 @pytest.fixture(scope='session')

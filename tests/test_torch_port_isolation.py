@@ -106,3 +106,36 @@ def test_source_names_no_jax_import():
                                  'tpudet3d')):
                             bad.append((path, s))
     assert not bad, bad
+
+
+def test_golden_support_imports_numpy_and_torch_only():
+    """``utils/golden.py`` remakes the golden record's inputs on a machine
+    without JAX: its imports are the standard library, numpy, torch and
+    the port, and importing it alone loads neither JAX nor the JAX
+    package."""
+    import ast
+    path = os.path.join(REPO, 'tpudet3d_torch', 'utils', 'golden.py')
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split('.')[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add('.' if node.level else node.module.split('.')[0])
+    assert names <= {'hashlib', 'json', 'os', 'numpy', 'torch', '.'}, names
+    code = textwrap.dedent('''
+        import sys
+        from tpudet3d_torch.utils import golden
+        golden.remake_variables([['params', ['Conv_0', 'kernel'],
+                                  [3, 3, 3, 8], 'conv']], 0)
+        golden.golden_frames(1, 32, 48, 0)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
+                                            'optax', 'tpudet3d'))
+        assert not bad, bad
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr

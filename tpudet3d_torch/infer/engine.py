@@ -213,6 +213,14 @@ class TwoStageEngine:
             logits, deltas = self.det_model(det_in)
         dets = decode_detections(logits.contiguous(), deltas.contiguous(),
                                  self.anchors, **self.decode_kwargs())
+        return det_in, logits, deltas, dets, self._crop_boxes(dets, h, w,
+                                                              margin)
+
+    def _crop_boxes(self, dets, h, w, margin):
+        """The first crop boxes ``[N,max_det,4]`` of K3's detections ``dets
+        [N,max_det,6]`` (detector pixels): scaled to the frame, expanded,
+        margined and clipped to it."""
+        cfg = self.cfg
         s = INPUT_SIZE
         boxes = dets[..., :4] * self._const([w / s, h / s, w / s, h / s])
         if tuple(cfg.expand_ratio) != (1.0, 1.0):
@@ -223,15 +231,21 @@ class TwoStageEngine:
         if margin:
             m = float(np.float32(margin))
             boxes = boxes + self._const([-m, -m, m, m])
-        boxes = torch.minimum(boxes.clamp(min=0.0), self._const([w, h, w, h]))
-        return det_in, logits, deltas, dets, boxes
+        return torch.minimum(boxes.clamp(min=0.0), self._const([w, h, w, h]))
 
     @torch.no_grad()
     def _pipeline_core(self, frames, h, w, margin, refine_margin):
         """frames ``[N,H,W,3]`` uint8 on the engine's device → packed
         ``[N, max_det, 26]`` float32 on the device."""
-        cfg = self.cfg
         _, _, _, dets, boxes = self._detect(frames, h, w, margin)
+        return self._regress(frames, dets, boxes, h, w, refine_margin)
+
+    @torch.no_grad()
+    def _regress(self, frames, dets, boxes, h, w, refine_margin):
+        """Stage 2 of the detections ``dets [N,max_det,6]`` cropped at
+        ``boxes [N,max_det,4]``: the refine passes, then the packed
+        ``[N, max_det, 26]``."""
+        cfg = self.cfg
         n, md = boxes.shape[:2]
         tta_w = cfg.crop_size[1] if cfg.tta_flip else 0
         for _ in range(int(cfg.refine_passes)):

@@ -143,7 +143,7 @@ def quantized_apply(model, *args, act_scales: Dict[str, float], **kwargs):
         return model(*args, **kwargs)
 
 
-def calibrate_engine(engine, frames, method: str = 'absmax'):
+def calibrate_engine(engine, frames, method: str = 'absmax', dets=None):
     """Calibrate both stages of a ``TwoStageEngine`` on representative
     frames; returns ``(det_scales, reg_scales)`` for
     ``EngineConfig.det_int8_scales`` / ``reg_int8_scales``.
@@ -155,7 +155,9 @@ def calibrate_engine(engine, frames, method: str = 'absmax'):
     clipped to it), cropped in float32 and normalised as ``(x - mean·255) /
     (std·255)`` (not the engine's bfloat16 scale and offset).  ``frames``
     is an ``[N,H,W,3]`` uint8 array or a list of HWC uint8 frames of any
-    shapes.  Without a detection above ``det_conf`` it warns and returns
+    shapes.  ``dets`` (one ``[K,6]`` array a frame, detector pixels, as
+    K3 gives them) replaces the detector's own detections as the crops'
+    source.  Without a detection above ``det_conf`` it warns and returns
     the detector's scales with ``{}`` for the regressor, which then serves
     unquantized."""
     from ..detect.anchors import INPUT_SIZE
@@ -172,15 +174,16 @@ def calibrate_engine(engine, frames, method: str = 'absmax'):
         for f in frames]) / torch.tensor(255.0, device=dev)
     det_scales = calibrate(engine.det_model, [(det_in,)], method=method)
 
-    with torch.no_grad():
-        logits, deltas = engine.det_model(det_in)
-        dets = decode_detections(
-            logits.contiguous(), deltas.contiguous(), engine.anchors,
-            score_thr=cfg.score_thr, iou_thr=cfg.nms_iou,
-            max_per_img=cfg.max_detections,
-            pre_nms_k=max(4 * cfg.max_detections, 32),
-            soft_nms_sigma=cfg.soft_nms_sigma,
-            soft_nms_dup_iou=cfg.soft_nms_dup_iou).cpu().numpy()
+    if dets is None:
+        with torch.no_grad():
+            logits, deltas = engine.det_model(det_in)
+            dets = decode_detections(
+                logits.contiguous(), deltas.contiguous(), engine.anchors,
+                score_thr=cfg.score_thr, iou_thr=cfg.nms_iou,
+                max_per_img=cfg.max_detections,
+                pre_nms_k=max(4 * cfg.max_detections, 32),
+                soft_nms_sigma=cfg.soft_nms_sigma,
+                soft_nms_dup_iou=cfg.soft_nms_dup_iou).cpu().numpy()
     mean = torch.tensor(np.asarray(REG_MEAN, np.float32) * 255.0, device=dev)
     std = torch.tensor(np.asarray(REG_STD, np.float32) * 255.0, device=dev)
     crops = []

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ['maybe_init_distributed', 'world', 'rank', 'is_main_process',
+__all__ = ['maybe_init_distributed', 'group_line', 'world', 'rank',
+           'is_main_process',
            'group_device', 'local_batch', 'local_batch_slice', 'local_rows',
            'all_reduce_sum', 'all_reduce_mean', 'global_mean', 'gather_rows',
            'barrier']
@@ -49,8 +50,8 @@ def maybe_init_distributed(cfg=None, device=None, backend=None):
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``).
     ``data_parallel.use_parallel=False`` means no group (one device, as
     JAX's ``devices[:1]``); ``num_devices``, when set, must equal the
-    group's size.  With no group asked for, or one process, no group is
-    made.
+    group's size.  With no group asked for, no group is made; an address
+    from the config or torchrun makes one, even of one process.
 
     ``device`` is the card unless ``'cpu'``; a process on the card drives
     ``cuda:{LOCAL_RANK}`` (its rank modulo the visible cards when
@@ -77,8 +78,6 @@ def maybe_init_distributed(cfg=None, device=None, backend=None):
     if dp.get('num_devices') and int(dp['num_devices']) != size:
         raise ValueError(f'data_parallel.num_devices={dp["num_devices"]} but '
                          f'the group has {size} processes')
-    if size == 1 and backend is None:
-        return device
     if backend is None:
         backend = 'nccl' if device.type == 'cuda' else 'gloo'
     if backend == 'nccl' and device.type != 'cuda':
@@ -92,6 +91,15 @@ def maybe_init_distributed(cfg=None, device=None, backend=None):
                             rank=rank_, **kwargs)
     _DEVICE = device
     return device
+
+
+def group_line():
+    """``process group: <backend>, world <n>, rank <r>`` under a group, else
+    None (the CLIs log it)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return (f'process group: {dist.get_backend()}, world '
+            f'{dist.get_world_size()}, rank {dist.get_rank()}')
 
 
 def _process_device(device, rank_):

@@ -91,6 +91,9 @@ def main(argv=None):
 
 
 def run(cfg, args, device=None):
+    group = sharding.group_line()
+    if group:
+        print(group)
     seed = set_random_seed(int(cfg.utils.random_seeds))
     pipe = setup_training(cfg, device=device or args.device, seed=seed)
     print(f'device: {pipe.device}'

@@ -241,6 +241,9 @@ def main(argv=None):
                                   + time.strftime('-%Y-%m-%d-%H-%M-%S')))
                   if sharding.is_main_process() else open(os.devnull, 'w'))
     try:
+        group = sharding.group_line()
+        if group:
+            print(group)
         run = setup(cfg, device, args.resume)
         max_epochs = int(cfg.data.max_epochs)
         save_freq = int(cfg.utils.save_freq)
