@@ -3757,6 +3757,81 @@ def sharded_serving(dev, wrappers, frames_np, plain, norm, gpu):
     return dict(fps=fps, runs=out, slice_errs=list(errs)), engine
 
 
+def launches_by_card(fn, names, calls=5):
+    """``{name: {card: launches per call}}`` of the kernels ``names`` over
+    ``calls`` calls of ``fn``, from the device index of each kernel event
+    of ``torch.profiler``; a session that records no device activity is
+    repeated, up to three times.  The tracer may miss a launch now and
+    then, so the counts can fall short; a card it lists did run the
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+        events = device_events(prof)
+        if events:
+            break
+    out = {n: {} for n in names}
+    for e in events:
+        for n in names:
+            if n in e.name:
+                by = out[n]
+                by[e.device_index] = by.get(e.device_index, 0) + 1 / calls
+    return out
+
+
+def sharded_cards(world, wrappers, frames_np, gpu):
+    """``--dp-cards``: ``build_engine()`` (bf16, full width) over 16 720p
+    frames sharded over ``cuda:0`` to ``cuda:{world-1}``: each replica's
+    rows bit for bit the unsharded engine's over the same slice, K1-K4
+    launched once a replica on that replica's card, and frames/s
+    unsharded and sharded (reported)."""
+    from tpudet3d_torch.infer import build_engine
+    dev = torch.device('cuda:0')
+    engine = build_engine(det_conf=0.0, device=dev)
+    n = len(frames_np)
+    m = n // world
+    with cudnn_deterministic():
+        slices = [engine.infer_batch(frames_np[i * m:(i + 1) * m])
+                  for i in range(world)]
+        fps = {'unsharded': serving_fps(lambda: engine.infer_batch(
+            frames_np))}
+        devices = [f'cuda:{i}' for i in range(world)]
+        engine.shard(devices)
+        expect([str(r.device) for r, _ in engine._replicas] == devices,
+               f'replicas on {[str(r.device) for r, _ in engine._replicas]}')
+        rows, launches = drive(wrappers,
+                               lambda: engine.infer_batch(frames_np))
+        expect(launches == [world] * 4 + [0, 0, 0],
+               f'{world} cards: launches {launches}')
+        check_results(rows, *FRAME[:2])
+        for i, ref in enumerate(slices):
+            same_results(rows[i * m:(i + 1) * m], ref,
+                         f'replica on cuda:{i}: rows of frames '
+                         f'{i * m}-{(i + 1) * m - 1}')
+        # ``world`` launches of each kernel a call (the counts above), and
+        # each card runs it: one a replica on its own card
+        by_card = launches_by_card(lambda: engine.infer_batch(frames_np),
+                                   K1_K4_NAMES)
+        for name, by in by_card.items():
+            expect(sorted(by) == list(range(world)),
+                   f'{name}: launched on cards {sorted(by)} ({by}), every '
+                   f'card of {world} wanted')
+        fps[f'{world} cards'] = serving_fps(
+            lambda: engine.infer_batch(frames_np))
+    print(f'sharded serving over {world} cards on {gpu}: rows equal the '
+          f'unsharded engine\'s slices bit for bit; K1-K4 once a replica '
+          f'on its card; frames/s ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in fps.items()) + ' (reported)')
+    return dict(fps=fps, launches=launches, by_card={
+        k: {str(d): v for d, v in by.items()} for k, by in by_card.items()})
+
+
 def utilities(dev, engine, frames_np, gpu, tmp):
     """11e: the complexity CLI, a profiled serving call's trace, a sweep of
     2 trials."""
@@ -3829,7 +3904,9 @@ def parallel_path(dev, wrappers, frames_np, plain, norm, gpu):
 GOLDEN_ROOT = 'tests/fixtures/torch_port_golden'
 # reported, not gated: the free-running engine's rows (random weights
 # leave the detector's top scores on a plateau, where JAX's own bf16 and
-# float32 rows part), the port's calibration on its own detections
+# float32 rows part; trained heads part them further,
+# tests/torch_port_heads_probe.py), the port's calibration on its own
+# detections
 # (crops of other boxes where the rows part), and JAX's calibration with
 # its crops in float32 beside its own in bf16 (the size of that cast)
 GOLDEN_REPORTED = ('rows', 'scales', 'jax_f32_crops_vs_bf16_crops')
@@ -3913,6 +3990,13 @@ def golden_scales_err(got, ref, ref_f32):
         out[stage] = golden.continuous_rule(
             [got[stage][k] for k in keys], [ref[stage][k] for k in keys],
             [ref_f32[stage][k] for k in keys])
+        # the conv of the largest error, and the stem's (the conv that
+        # takes the model's input: first in sorted order in every model)
+        worst = max(keys, key=lambda k: abs(got[stage][k] - ref[stage][k]))
+        for name, k in (('worst', worst), ('stem', keys[0])):
+            out[stage][name] = dict(conv=k, got=got[stage][k],
+                                    jax=ref[stage][k],
+                                    jax_f32=ref_f32[stage][k])
     out['ok'] = out['det']['ok'] and out['reg']['ok']
     return out
 
@@ -4386,16 +4470,37 @@ def cli_state(kind, cfg, dev):
                                  wd=float(cfg.optim.wd), device=dev)
 
 
-def torchrun_clis(dev, tmp):
-    """Each training CLI through ``torch.distributed.run`` with one process
-    on the card, on its config cut to one short epoch of synthetic items
-    (bf16): the NCCL group of one from torchrun's environment in rank 0's
-    log, the log file, one snapshot, and ``resume_from`` of it saved
-    again bit for bit."""
-    import glob
+def resume_again(dev, kind, cfg_path, snap, out_dir):
+    """``resume_from`` of the snapshot ``snap`` into a fresh state of the
+    CLI's config, saved again as ``out_dir/snap_0.pt``; returns that
+    path."""
     import os
     from tpudet3d_torch.core.config import read_py_config
     from tpudet3d_torch.utils.checkpoint import resume_from, save_snap
+    cfg = read_py_config(cfg_path)
+    cfg.data_parallel = dict(use_parallel=False)
+    state, start = resume_from(cli_state(kind, cfg, dev), snap)
+    expect(start == 1, f'{snap}: resumed at epoch {start}')
+    save_snap(state, 0, out_dir)
+    return os.path.join(out_dir, 'snap_0.pt')
+
+
+def resume_work(dev, world, rank, kind, cfg_path, snap, root):
+    """:func:`resume_again` on one rank of a group (``spawn_group``)."""
+    import os
+    return resume_again(dev, kind, cfg_path, snap,
+                        os.path.join(root, f'again_{rank}'))
+
+
+def torchrun_clis(dev, tmp, world=1):
+    """Each training CLI through ``torch.distributed.run`` with ``world``
+    processes, one a card, on its config cut to one short epoch of
+    synthetic items (bf16; the batch sizes are global): the NCCL group of
+    ``world`` from torchrun's environment in rank 0's log, that one log
+    file, one snapshot, and ``resume_from`` of it saved again bit for bit
+    (on every rank of an NCCL group of ``world``)."""
+    import glob
+    import os
     out = {}
     for kind, module, config, overrides, log in TORCHRUN_CLIS:
         root = os.path.join(tmp, f'torchrun_{kind}')
@@ -4408,7 +4513,8 @@ def torchrun_clis(dev, tmp):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-             '--nproc_per_node', '1', '-m', module, '--config', cfg_path,
+             '--nproc_per_node', str(world), '-m', module, '--config',
+             cfg_path,
              '--output_dir', run_dir], capture_output=True, text=True,
             timeout=600)
         seconds = time.perf_counter() - t0
@@ -4418,25 +4524,29 @@ def torchrun_clis(dev, tmp):
         logs = glob.glob(os.path.join(run_dir, log + '-*'))
         expect(len(logs) == 1, f'torchrun {module}: rank 0 logs {logs}')
         text = open(logs[0]).read()
-        expect('process group: nccl, world 1, rank 0' in text,
-               f'torchrun {module}: no NCCL group of one in the log')
+        expect(f'process group: nccl, world {world}, rank 0' in text,
+               f'torchrun {module}: no NCCL group of {world} in the log')
         snaps = sorted(glob.glob(os.path.join(run_dir, 'snap_*.pt')))
         expect([os.path.basename(s) for s in snaps] == ['snap_0.pt'],
                f'torchrun {module}: snapshots {snaps}')
-        cfg = read_py_config(cfg_path)
-        cfg.data_parallel = dict(use_parallel=False)
-        state, start = resume_from(cli_state(kind, cfg, dev), snaps[0])
-        expect(start == 1, f'torchrun {module}: resumed at epoch {start}')
-        again = os.path.join(root, 'again')
-        save_snap(state, 0, again)
-        same_snapshots(*(torch.load(p, map_location='cpu', weights_only=True)
-                         for p in (snaps[0], os.path.join(again,
-                                                          'snap_0.pt'))),
-                       f'torchrun {module} resumed snapshot')
-        out[kind] = dict(seconds=seconds, log=os.path.basename(logs[0]),
-                         snapshot='snap_0.pt', resumed_bit_for_bit=True)
-        print(f'torchrun {module}: NCCL world 1, {out[kind]["log"]}, '
-              f'snap_0.pt resumed bit for bit ({seconds:.1f} s)')
+        if world == 1:
+            again = [resume_again(dev, kind, cfg_path, snaps[0],
+                                  os.path.join(root, 'again'))]
+        else:
+            again = spawn_group(world, 'nccl', 'cuda:{rank}', resume_work,
+                                (kind, cfg_path, snaps[0], root), root, 300)
+        saved = torch.load(snaps[0], map_location='cpu', weights_only=True)
+        for r, path in enumerate(again):
+            same_snapshots(saved, torch.load(path, map_location='cpu',
+                                             weights_only=True),
+                           f'torchrun {module} snapshot resumed on rank {r}')
+        out[kind] = dict(seconds=seconds, world=world,
+                         log=os.path.basename(logs[0]),
+                         snapshot='snap_0.pt', resumed_bit_for_bit=True,
+                         resumed_ranks=len(again))
+        print(f'torchrun {module}: NCCL world {world}, {out[kind]["log"]}, '
+              f'snap_0.pt resumed bit for bit on {len(again)} rank(s) '
+              f'({seconds:.1f} s)')
     return out
 
 
@@ -4444,9 +4554,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
     ap.add_argument('--dp-cards', type=int, default=0,
-                    help='instead of the phases: the data-parallel '
-                         'comparison of phase 11 over this many cards, one '
-                         'process a card through NCCL')
+                    help='instead of the phases: over this many cards, one '
+                         'process a card through NCCL, the data-parallel '
+                         'comparison of phase 11, both training CLIs under '
+                         'torchrun, and the engine sharded over the cards')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -4457,19 +4568,45 @@ def main():
 
 
 def dp_cards(world, out_path):
-    """``--dp-cards``: :func:`compare_dp` through NCCL over ``world`` cards,
-    then the contract's last line."""
+    """``--dp-cards``: over ``world`` cards, one process a card through
+    NCCL, :func:`compare_dp`, both training CLIs under ``torchrun``
+    (:func:`torchrun_clis`), and the engine sharded over the cards
+    (:func:`sharded_cards`); then the contract's last line."""
     import tempfile
+
+    from tpudet3d_torch.detect import decode_detections
+    from tpudet3d_torch.infer.epilogue import head_epilogue
+    from tpudet3d_torch.kernels.build import build, library
+    from tpudet3d_torch.ops import box3d, crop_and_resize, resize_bilinear
+    from tpudet3d_torch.ops import quant as qops
     expect(torch.cuda.device_count() >= world,
            f'{world} cards asked for, {torch.cuda.device_count()} visible')
+    build()
+    library()
     gpu = gpu_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (resize_bilinear, crop_and_resize, decode_detections,
+                head_epilogue, box3d.iou_oriented_boxes, qops.quantize_input,
+                qops.rescale)
+    dev = torch.device('cuda:0')
+    frames = np.random.RandomState(1).randint(0, 256, (16, *FRAME)) \
+        .astype(np.uint8)
+    t0, seconds = time.perf_counter(), {}
     with tempfile.TemporaryDirectory() as tmp:
-        res = compare_dp(torch.device('cuda:0'), tmp, gpu, world, 'nccl')
+        res = compare_dp(dev, tmp, gpu, world, 'nccl')
+        seconds['compare_dp'] = time.perf_counter() - t0
+        clis = torchrun_clis(dev, tmp, world)
+        seconds['torchrun'] = time.perf_counter() - t0 - sum(
+            seconds.values())
+    shard = sharded_cards(world, wrappers, frames, gpu)
+    seconds['sharded'] = time.perf_counter() - t0 - sum(seconds.values())
+    print(f'--dp-cards {world}: ' + ', '.join(
+        f'{k} {v:.1f} s' for k, v in seconds.items()))
     if out_path:
         with open(out_path, 'w') as f:
-            json.dump({'gpu': gpu, 'dp_cards': res}, f, indent=1)
+            json.dump({'gpu': gpu, 'dp_cards': res, 'torchrun': clis,
+                       'sharded': shard, 'seconds': seconds}, f, indent=1)
     print(gpu)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

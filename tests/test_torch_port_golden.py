@@ -88,6 +88,30 @@ def test_inputs_remade_bit_for_bit(record):
         assert golden.digest(*gen.train_items(spec)) == spec['sha256'], case
 
 
+def test_planted_boxes_leave_the_frames(record):
+    """``golden_boxes`` draws the rectangles from the stream of
+    ``golden_frames`` without moving it: the frames keep the manifest's
+    digest, 3 to 5 rectangles a frame lie inside it, and the one drawn
+    last shows its fill on every pixel, the brightness bin of which is
+    its label."""
+    fr = record[0]['frames']
+    args = (fr['n'], fr['h'], fr['w'], fr['seed'])
+    frames = golden.golden_frames(*args)
+    assert golden.digest(frames) == fr['sha256']
+    boxes, labels, valid = golden.golden_boxes(*args)
+    assert boxes.shape == (fr['n'], 5, 4) and labels.dtype == np.int64
+    assert np.all((valid.sum(1) >= 3) & (valid.sum(1) <= 5))
+    assert valid[:, :3].all() and not boxes[~valid].any()
+    for f, b, lab, ok in zip(frames, boxes, labels, valid):
+        assert np.all(b[ok, :2] >= 0) and np.all(b[ok, 2] <= fr['w'])
+        assert np.all(b[ok, 3] <= fr['h'])
+        x0, y0, x1, y1 = b[ok][-1].astype(int)
+        region = f[y0:y1, x0:x1].reshape(-1, 3)
+        assert (region == region[0]).all()
+        assert lab[ok][-1] == int(region[0].astype(int).sum()) * 9 // 768
+    np.testing.assert_array_equal(golden.golden_boxes(*args)[0], boxes)
+
+
 def test_record_holds_every_case(record):
     manifest, arrays = record
     assert sorted(manifest['serving']) == ['A', 'B']

@@ -214,6 +214,113 @@ def test_calibrate_p999_matches_jax():
         quant.calibrate(pm, [], method='minmax')
 
 
+# --- calibration of bf16 models: the stem on the input before its cast ----
+
+# JAX's recorder sees each conv's argument before Flax casts it to the
+# module's dtype: the stem records the float32 model input, every later
+# conv a bf16 activation.  The port's bf16 forward rounds like JAX's up to
+# the order of its sums, so a later conv's absmax (or 99.9th percentile)
+# may move by a few bf16 ulps of the activations it is taken over
+BF16_STAT_RTOL = 2 ** -5
+
+
+@pytest.fixture(scope='module')
+def bf16_models(models):
+    """``(JAX module, variables, port module)`` of the width-0.25 detector
+    and of MNv3-large-21k at 64², both computing in bf16."""
+    from tpudet3d.models import build_model as jax_build_model
+    from tpudet3d.core import AttrDict as JaxAttrDict
+    _, dv, _, _, _ = models('det')
+    _, rv, _, _, _ = models('mnv3')
+    det = (JaxSSD(num_classes=9, width_mult=0.25, dtype=jnp.bfloat16), dv,
+           port_of(SSDDetector(num_classes=9, width_mult=0.25,
+                               dtype=torch.bfloat16), dv))
+    name = 'mobilenetv3_large_21k'
+    reg = (jax_build_model(JaxAttrDict(model=dict(
+        name=name, pretrained=False, num_classes=9, bf16=False)),
+        dtype=jnp.bfloat16), rv,
+        port_of(build_model(PortAttrDict(model=dict(
+            name=name, num_classes=9, bf16=False)), dtype=torch.bfloat16),
+            rv))
+    return dict(det=det, reg=reg)
+
+
+def _stem(pm):
+    """The path of the conv that consumes the model's input."""
+    (path,) = [p for m, p in quant.dense_conv_paths(pm).items()
+               if m.in_channels == 3]
+    return path
+
+
+def _assert_bf16_stats(got, ref, stem):
+    assert set(got) == set(ref) and stem in ref
+    for k, v in ref.items():
+        tol = 1e-6 if k == stem else BF16_STAT_RTOL
+        assert abs(got[k] - v) <= tol * v, (k, got[k], v)
+
+
+@pytest.mark.parametrize('method', ['absmax', 'p999'])
+@pytest.mark.parametrize('name', ['det', 'reg'])
+def test_calibrate_bf16_stem_on_float32_input(models, bf16_models, name,
+                                              method):
+    """``calibrate`` of a bf16 model on a float32 batch: the stem's
+    statistic is JAX's (the float32 input's), the other convs within
+    BF16_STAT_RTOL; a bf16 batch gives the stem the same statistic
+    rounded as the input was."""
+    jm, jv, pm = bf16_models[name]
+    _, _, _, x, kw = models('det' if name == 'det' else 'mnv3')
+    batches = [x, 2.0 * x[:1]]
+    ref = jax_quant.calibrate(jm, to_jax(jv), [(jnp.asarray(b),)
+                                                for b in batches],
+                              method=method, **kw)
+    got = quant.calibrate(pm, [(torch.from_numpy(b),) for b in batches],
+                          method=method)
+    _assert_bf16_stats(got, ref, _stem(pm))
+    rounded = quant.calibrate(
+        pm, [(torch.from_numpy(b).bfloat16(),) for b in batches],
+        method=method)
+    want = max(float(np.percentile(np.abs(np.asarray(
+        jnp.asarray(b).astype(jnp.bfloat16), np.float32)), 99.9))
+        if method == 'p999' else float(np.abs(np.asarray(
+            jnp.asarray(b).astype(jnp.bfloat16), np.float32)).max())
+        for b in batches)
+    assert rounded[_stem(pm)] == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize('method', ['absmax', 'p999'])
+def test_calibrate_engine_bf16_stems_match_jax(bf16_models, method,
+                                               monkeypatch):
+    """``calibrate_engine`` of a bf16 engine on two small frames against
+    JAX's, with JAX's crops in float32 as the port crops and the port
+    cropping JAX's detections: both stems' statistics JAX's within 1e-6
+    relative, every other conv within BF16_STAT_RTOL."""
+    from tpudet3d.infer import EngineConfig as JaxEngineConfig
+    from tpudet3d.infer import TwoStageEngine as JaxEngine
+    import tpudet3d.detect as jax_detect
+    jdet, dv, pdet = bf16_models['det']
+    jreg, rv, preg = bf16_models['reg']
+    frames = np.random.RandomState(28).randint(
+        0, 256, (2, 96, 128, 3)).astype(np.uint8)
+    kw = dict(crop_size=(64, 64), det_conf=0.0, max_detections=4)
+    jeng = JaxEngine(jdet, to_jax(dv), jreg, to_jax(rv),
+                     JaxEngineConfig(**kw))
+    decode, crop = jax_detect.decode_detections, jax_image.crop_and_resize
+    seen = []
+
+    def recording(*args, **kwargs):
+        seen.append(np.asarray(decode(*args, **kwargs), np.float32))
+        return seen[-1]
+
+    monkeypatch.setattr(jax_detect, 'decode_detections', recording)
+    monkeypatch.setattr(jax_image, 'crop_and_resize', lambda img, b, hw: crop(
+        img, b, hw, compute_dtype=jnp.float32))
+    ref = jax_quant.calibrate_engine(jeng, frames, method=method)
+    peng = TwoStageEngine(pdet, preg, EngineConfig(**kw), device='cpu')
+    got = quant.calibrate_engine(peng, frames, method=method, dets=seen)
+    for g, r, pm in zip(got, ref, (pdet, preg)):
+        _assert_bf16_stats(g, r, _stem(pm))
+
+
 # --- K6 and K7 plain versions -------------------------------------------
 
 def _jax_quantize(x_nhwc, s_x):

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import ConvBN, conv
+from ..models.layers import ConvBN, conv, model_input
 from ..models.mobilenetv2 import MobileNetV2
 from .anchors import generate_anchors, num_anchors_per_level
 from .coder import CASCADE_STDS, decode_boxes, encode_boxes
@@ -78,7 +78,7 @@ class SSDDetector(nn.Module):
 
     def forward(self, x, train=False):
         size = x.shape[1]
-        x = x.to(self.dtype).permute(0, 3, 1, 2)    # channels_last view
+        x = model_input(x, self.dtype)
         feats = self.backbone(x, train)
         logits = self._heads('cls_heads', feats, train)
         d1 = self._heads('reg_heads', feats, train)

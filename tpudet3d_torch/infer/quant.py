@@ -70,13 +70,16 @@ def _conv_hook(fn):
         yield
     finally:
         layers.conv_hook.fn = prev
+        layers.conv_hook.cast = None
 
 
 def calibrate(model, batches: Iterable, method: str = 'absmax',
               **forward_kwargs) -> Dict[str, float]:
     """Run ``model`` over ``batches`` (tuples of forward arguments) and
     return ``{conv_path: input statistic}`` over every dense conv, the
-    largest over the batches.  ``'absmax'`` keeps a running max of ``|x|``
+    largest over the batches; the stem conv's input is the model's input
+    before its dtype cast (``models/layers.py`` ``model_input``), as JAX
+    records it.  ``'absmax'`` keeps a running max of ``|x|``
     on the device with one host read per batch; ``'p999'`` takes
     ``np.percentile(|x|, 99.9)`` of each input on the host."""
     paths = dense_conv_paths(model)
@@ -85,8 +88,8 @@ def calibrate(model, batches: Iterable, method: str = 'absmax',
         def record(x, layer):
             path = paths.get(layer)
             if path is not None:
-                v = float(np.percentile(
-                    np.abs(x.detach().float().cpu().numpy()), 99.9))
+                v = float(np.percentile(np.abs(
+                    layers.uncast(x).detach().float().cpu().numpy()), 99.9))
                 stats[path] = max(stats.get(path, 0.0), v)
 
         with torch.no_grad(), _conv_hook(record):
@@ -101,7 +104,7 @@ def calibrate(model, batches: Iterable, method: str = 'absmax',
     def record(x, layer):
         path = paths.get(layer)
         if path is not None:
-            m = x.detach().float().abs().amax()
+            m = layers.uncast(x).detach().float().abs().amax()
             running[path] = (m if path not in running
                              else torch.maximum(running[path], m))
 

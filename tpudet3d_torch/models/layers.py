@@ -27,7 +27,8 @@ from torch import nn
 from ..parallel import sharding
 
 __all__ = ['make_divisible', 'hard_sigmoid', 'hard_swish',
-           'global_pool', 'linear', 'conv', 'batch_norm', 'ConvBN',
+           'global_pool', 'linear', 'model_input', 'uncast', 'conv',
+           'batch_norm', 'ConvBN',
            'SqueezeExcite', 'InvertedResidual', 'init_weights']
 
 
@@ -70,6 +71,25 @@ def linear(x, layer):
 # while it calibrates or serves int8 (Flax's interceptors are per thread
 # too): the conv's output, or None to leave the call to ``conv``
 conv_hook = threading.local()
+
+
+def model_input(x, dtype):
+    """A model's NHWC input as the NCHW ``channels_last`` view its stem
+    conv computes on, cast to ``dtype``.  While a conv hook is installed
+    the view before the cast is kept beside it (:func:`uncast`): Flax
+    casts inside the conv, so JAX's calibration records the stem's input
+    in the caller's dtype, not the model's."""
+    y = x.to(dtype).permute(0, 3, 1, 2)
+    if getattr(conv_hook, 'fn', None) is not None:
+        conv_hook.cast = (y, x.permute(0, 3, 1, 2))
+    return y
+
+
+def uncast(x):
+    """``x`` before :func:`model_input`'s cast when ``x`` is that cast's
+    output in this thread, else ``x``."""
+    cast = getattr(conv_hook, 'cast', None)
+    return cast[1] if cast is not None and cast[0] is x else x
 
 
 def conv(x, layer):

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import local_rows, world
-from .layers import global_pool, linear
+from .layers import global_pool, linear, model_input
 
 __all__ = ['MultiHeadRegressor', 'MAX_CLASSES', 'dropout']
 
@@ -79,7 +79,7 @@ class MultiHeadRegressor(nn.Module):
 
     def forward(self, x, pre_activation=False, *, cats=None, train=False,
                 generator=None):
-        x = x.to(self.dtype).permute(0, 3, 1, 2)    # channels_last view
+        x = model_input(x, self.dtype)
         feats = self.backbone.features(x, train)
         pooled = self.backbone.head(global_pool(feats, self.pooling_mode),
                                     train)

@@ -15,8 +15,9 @@ bit for bit from the manifest alone:
   generator calibrates them on the frames, so that the random networks
   stay in range); load them with ``utils/convert.py``'s
   ``load_jax_variables``;
-* frames (:func:`golden_frames`), regressor items (:func:`regressor_items`)
-  and detector items (:func:`detector_items`);
+* frames (:func:`golden_frames`) and the rectangles planted in them
+  (:func:`golden_boxes`), regressor items (:func:`regressor_items`) and
+  detector items (:func:`detector_items`);
 * the CountSketch of a gradient or an update in the Flax layout
   (:func:`flax_vector`, :func:`count_sketch`).
 
@@ -40,7 +41,10 @@ roundings of one result part by about √2·y, hence the factor 2
   random weights the detector's top scores lie on a plateau of
   neighbouring anchors, where K3's ranking and suppression follow the
   last bits, and JAX's own bf16 and float32 rows pair on 19 and 13 of 32
-  at full width.
+  at full width.  Trained classification heads do not decide them
+  either (``tests/torch_port_heads_probe.py``): the random backbone's
+  features carry their spatial signal at 33–48 times JAX's own bf16
+  noise, and heads that separate the rectangles amplify both.
 
 This module is testing support: it imports numpy and torch and nothing of
 JAX or of the JAX package.
@@ -56,7 +60,7 @@ import torch
 __all__ = ['FACTOR', 'SLACK', 'MATCH_IOU', 'MATCH_SHARE', 'BUCKETS',
            'VAR_FLOOR', 'FIXTURE', 'load_golden', 'digest', 'tree_digest',
            'leaf_kind', 'draw_leaf', 'remake_variables', 'golden_frames',
-           'regressor_items', 'detector_items', 'sketch_hash',
+           'golden_boxes', 'regressor_items', 'detector_items', 'sketch_hash',
            'count_sketch', 'flax_vector', 'leaf_norms', 'bf16_ulp',
            'continuous_rule', 'sketch_rule', 'match_rows', 'rows_rule',
            'dets_rule', 'pack_rows', 'unpack_rows']
@@ -171,20 +175,49 @@ def remake_variables(leaves, seed, stats=None):
 
 # --- inputs ----------------------------------------------------------------
 
-def golden_frames(n, h, w, seed):
-    """``[n,h,w,3]`` uint8 BGR frames: a blocky background of 16-pixel
-    cells with noise on it, and 3 to 5 filled rectangles each, drawn by
-    numpy slicing."""
+def _frame_draws(n, h, w, seed):
+    """The frames of :func:`golden_frames` and each frame's rectangles
+    ``[k, 7]`` (x0, y0, x1, y1 pixels, then the BGR fill), in draw
+    order."""
     rng = np.random.RandomState(seed)
     cells = rng.randint(0, 256, (n, -(-h // 16), -(-w // 16), 3))
     frames = np.repeat(np.repeat(cells, 16, 1), 16, 2)[:, :h, :w]
     frames = frames + rng.randint(-12, 13, frames.shape)
+    rects = []
     for f in frames:
+        drawn = []
         for _ in range(rng.randint(3, 6)):
             bh, bw = rng.randint(h // 8, h // 2), rng.randint(w // 8, w // 2)
             y0, x0 = rng.randint(0, h - bh), rng.randint(0, w - bw)
-            f[y0:y0 + bh, x0:x0 + bw] = rng.randint(0, 256, 3)
-    return np.clip(frames, 0, 255).astype(np.uint8)
+            fill = rng.randint(0, 256, 3)
+            f[y0:y0 + bh, x0:x0 + bw] = fill
+            drawn.append([x0, y0, x0 + bw, y0 + bh, *fill])
+        rects.append(np.asarray(drawn, np.int64))
+    return np.clip(frames, 0, 255).astype(np.uint8), rects
+
+
+def golden_frames(n, h, w, seed):
+    """``[n,h,w,3]`` uint8 BGR frames: a blocky background of 16-pixel
+    cells with noise on it, and 3 to 5 filled rectangles each, drawn by
+    numpy slicing."""
+    return _frame_draws(n, h, w, seed)[0]
+
+
+def golden_boxes(n, h, w, seed):
+    """The rectangles planted in :func:`golden_frames` as detection ground
+    truth, from the same draws: ``boxes [n, 5, 4]`` (xyxy pixels of the
+    frame, float32), ``labels [n, 5]`` (int64: the fill's brightness,
+    ``sum(BGR)`` in nine equal bins) and ``valid [n, 5]`` (a frame has 3 to
+    5).  A later rectangle may cover part of an earlier one; both stay."""
+    rects = _frame_draws(n, h, w, seed)[1]
+    boxes = np.zeros((n, 5, 4), np.float32)
+    labels = np.zeros((n, 5), np.int64)
+    valid = np.zeros((n, 5), bool)
+    for i, r in enumerate(rects):
+        boxes[i, :len(r)] = r[:, :4]
+        labels[i, :len(r)] = r[:, 4:].sum(1) * 9 // (3 * 256)
+        valid[i, :len(r)] = True
+    return boxes, labels, valid
 
 
 def _box_keypoints(rng):
