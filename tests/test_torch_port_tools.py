@@ -138,16 +138,11 @@ def test_profiling_on_cpu(tmp_path):
     assert profiling.flops_of(lin, x) == 2 * 4 * 16 * 8
     with profiling.trace(str(tmp_path)) as prof:
         with profiling.annotate('port-step'):
-            y = lin(x).relu().sum()
+            lin(x).relu().sum()
     events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
     names = {e.get('name') for e in events['traceEvents']}
     assert 'port-step' in names and any('addmm' in str(n) for n in names)
     assert prof.key_averages()
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        timer.start()
-        dt = timer.stop(y)
-    assert dt >= 0 and timer.steps_per_sec > 0
 
 
 def test_optuna_optim_runs_two_trials(tmp_path, capsys):

@@ -43,6 +43,7 @@ from ..core.device import resolve_device
 from ..detect.anchors import INPUT_SIZE, generate_anchors
 from ..detect.nms import decode_detections
 from ..ops.image import crop_and_resize, resize_bilinear
+from ..utils.profiling import annotate
 from .epilogue import head_epilogue, refine_boxes, tta_flip_average
 from .quant import intercepting
 
@@ -104,11 +105,13 @@ class EngineConfig:
 
 def upload(frames, device):
     """Host uint8 frames → a tensor on ``device``, through pinned memory
-    and without waiting for the copy on the card."""
-    t = torch.as_tensor(np.ascontiguousarray(frames))
-    if device.type == 'cuda':
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+    and without waiting for the copy on the card; the span
+    ``tpudet3d_torch.serve.upload``."""
+    with annotate('tpudet3d_torch.serve.upload'):
+        t = torch.as_tensor(np.ascontiguousarray(frames))
+        if device.type == 'cuda':
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
 
 
 def _canonical(device):
@@ -203,18 +206,19 @@ class TwoStageEngine:
         """Stage 1 over the batch: ``(det_in, logits, deltas, dets, boxes)``
         with ``dets [N,max_det,6]`` from K3 in detector pixels and ``boxes
         [N,max_det,4]`` scaled, expanded, margined and clipped to the
-        frame."""
+        frame; the span ``serve.detect``."""
         cfg = self.cfg
-        det_in = resize_bilinear(frames, (INPUT_SIZE, INPUT_SIZE),
-                                 reverse_channels=cfg.input_is_bgr,
-                                 scale=1.0 / 255.0,
-                                 dtype=self.det_model.dtype)
-        with intercepting(self.det_model, cfg.det_int8_scales):
-            logits, deltas = self.det_model(det_in)
-        dets = decode_detections(logits.contiguous(), deltas.contiguous(),
-                                 self.anchors, **self.decode_kwargs())
-        return det_in, logits, deltas, dets, self._crop_boxes(dets, h, w,
-                                                              margin)
+        with annotate('tpudet3d_torch.serve.detect'):
+            det_in = resize_bilinear(frames, (INPUT_SIZE, INPUT_SIZE),
+                                     reverse_channels=cfg.input_is_bgr,
+                                     scale=1.0 / 255.0,
+                                     dtype=self.det_model.dtype)
+            with intercepting(self.det_model, cfg.det_int8_scales):
+                logits, deltas = self.det_model(det_in)
+            dets = decode_detections(logits.contiguous(), deltas.contiguous(),
+                                     self.anchors, **self.decode_kwargs())
+            return det_in, logits, deltas, dets, self._crop_boxes(
+                dets, h, w, margin)
 
     def _crop_boxes(self, dets, h, w, margin):
         """The first crop boxes ``[N,max_det,4]`` of K3's detections ``dets
@@ -244,20 +248,21 @@ class TwoStageEngine:
     def _regress(self, frames, dets, boxes, h, w, refine_margin):
         """Stage 2 of the detections ``dets [N,max_det,6]`` cropped at
         ``boxes [N,max_det,4]``: the refine passes, then the packed
-        ``[N, max_det, 26]``."""
+        ``[N, max_det, 26]``; the span ``serve.regress``."""
         cfg = self.cfg
         n, md = boxes.shape[:2]
         tta_w = cfg.crop_size[1] if cfg.tta_flip else 0
-        for _ in range(int(cfg.refine_passes)):
+        with annotate('tpudet3d_torch.serve.regress'):
+            for _ in range(int(cfg.refine_passes)):
+                pre, logits = self._heads(frames, boxes)
+                boxes = head_epilogue(
+                    pre, logits, boxes.reshape(n * md, 4), tta_w,
+                    refine=(w, h, refine_margin, cfg.refine_edge_grow)) \
+                    .reshape(n, md, 4)
             pre, logits = self._heads(frames, boxes)
-            boxes = head_epilogue(
-                pre, logits, boxes.reshape(n * md, 4), tta_w,
-                refine=(w, h, refine_margin, cfg.refine_edge_grow)) \
-                .reshape(n, md, 4)
-        pre, logits = self._heads(frames, boxes)
-        return head_epilogue(pre, logits, boxes.reshape(n * md, 4), tta_w,
-                             dets=dets.reshape(n * md, 6),
-                             det_conf=cfg.det_conf).reshape(n, md, 26)
+            return head_epilogue(pre, logits, boxes.reshape(n * md, 4),
+                                 tta_w, dets=dets.reshape(n * md, 6),
+                                 det_conf=cfg.det_conf).reshape(n, md, 26)
 
     def _pipeline(self, frame, h, w, margin=None, refine_margin=None):
         """frame ``[H,W,3]`` uint8 on the device → packed ``[max_det, 26]``."""
@@ -318,8 +323,9 @@ class TwoStageEngine:
         return rep
 
     def _sharded_batch(self, frames, h, w):
-        """frames ``[N,H,W,3]`` uint8 on the host → packed ``[N, max_det,
-        26]`` on the host, one slice a replica."""
+        """frames ``[N,H,W,3]`` uint8 on the host → packed ``[N/k, max_det,
+        26]`` slices on the k replicas' devices, in order; the replicas'
+        streams are left running (:meth:`_readback` waits for them)."""
         k = len(self._replicas)
         n = frames.shape[0]
         if n % k:
@@ -335,23 +341,32 @@ class TwoStageEngine:
             with ctx:
                 outs.append(rep._pipeline_batch(
                     rep._upload(frames[i * m:(i + 1) * m]), h, w))
-        for (_, stream) in self._replicas:
-            if stream is not None:
-                stream.synchronize()
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        return outs
+
+    def _readback(self, outs):
+        """Packed rows on the devices → per-frame result dicts on the host,
+        after the replicas' streams (if any); the span
+        ``serve.readback``, which holds the host's wait for the device."""
+        with annotate('tpudet3d_torch.serve.readback'):
+            for (_, stream) in self._replicas or ():
+                if stream is not None:
+                    stream.synchronize()
+            packed = np.concatenate([o.cpu().numpy() for o in outs])
+            return [_unpack(p[np.nonzero(p[:, 25] > 0)[0]]) for p in packed]
 
     # --- batched (server) API ---------------------------------------------
     def infer_batch(self, frames):
         """frames ``[N,H,W,3]`` uint8 → list of per-frame result dicts.
-        After ``shard(devices)`` N must split evenly over the replicas."""
-        n, h, w = frames.shape[:3]
+        After ``shard(devices)`` N must split evenly over the replicas.
+        Each stage is a span (``serve.upload``, ``serve.detect``,
+        ``serve.regress``, ``serve.readback``) and the spans tile the
+        call."""
+        h, w = frames.shape[1:3]
         if self._replicas:
-            packed = self._sharded_batch(np.asarray(frames), h, w)
+            outs = self._sharded_batch(np.asarray(frames), h, w)
         else:
-            packed = self._pipeline_batch(self._upload(frames), h, w)
-            packed = packed.cpu().numpy()
-        return [_unpack(packed[i, np.nonzero(packed[i, :, 25] > 0)[0]])
-                for i in range(n)]
+            outs = [self._pipeline_batch(self._upload(frames), h, w)]
+        return self._readback(outs)
 
     # --- synchronous API -------------------------------------------------
     def __call__(self, frame):
@@ -386,8 +401,9 @@ class TwoStageEngine:
         if not self._pending:
             raise RuntimeError('no async inference in flight')
         out, scale = self._pending.pop(0)
-        packed = out.cpu().numpy()
-        return _unpack(packed[np.nonzero(packed[:, 25] > 0)[0]], scale)
+        with annotate('tpudet3d_torch.serve.readback'):
+            packed = out.cpu().numpy()
+            return _unpack(packed[np.nonzero(packed[:, 25] > 0)[0]], scale)
 
     def warmup(self, frame_shape=(720, 1280, 3)):
         self(np.zeros(frame_shape, np.uint8))

@@ -12,8 +12,11 @@ first timed alone and then under ``torch.profiler``, and prints for each
 batch: wall time per call (unprofiled), device busy time per call (the sum
 of kernel times; one stream, so kernels do not overlap), the device's idle
 share (1 - busy / unprofiled wall), kernel launches per call, peak device
-memory, and device time by kernel group and by kernel; ``--out`` also gets
-the launches per call of every kernel by name.  Needs CUDA.
+memory, device time by kernel group and by kernel, and the host and device
+ms a call of each ``tpudet3d_torch.serve.*`` span (``utils/profiling.py``
+``span_times``: ``_pipeline_batch`` runs ``serve.detect`` and
+``serve.regress``); ``--out`` also gets the launches per call of every
+kernel by name.  Needs CUDA.
 """
 
 import argparse
@@ -23,6 +26,8 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from tpudet3d_torch.utils.profiling import SPAN_PREFIX, span_times
 
 FRAME = (720, 1280, 3)
 BATCHES = (1, 16, 32)
@@ -78,7 +83,9 @@ def profile_batch(engine, batch, steps):
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # device-side annotation ranges span other events: left out
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
             t, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(t for t, _ in kernels.values()) / steps
@@ -103,6 +110,10 @@ def profile_batch(engine, batch, steps):
                                     for name, (t, n) in top],
         'launches_by_kernel_per_call': {
             name: n / steps for name, (_, n) in sorted(kernels.items())},
+        'spans_ms_per_call': {
+            name: {'host': t['host_ms'] / steps,
+                   'device': t['device_ms'] / steps}
+            for name, t in span_times(prof, SPAN_PREFIX + 'serve.').items()},
     }
 
 
@@ -131,6 +142,9 @@ def main():
         for g, t in r['groups_ms_per_call'].items():
             print(f'  {g:16s} {t:8.3f} ms  '
                   f"{r['group_launches_per_call'][g]:6.0f} launches")
+        print(f"  {'span':31s} {'host ms':>8s} {'device ms':>10s}")
+        for name, t in r['spans_ms_per_call'].items():
+            print(f"  {name:31s} {t['host']:8.3f} {t['device']:10.3f}")
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(report, f, indent=1)

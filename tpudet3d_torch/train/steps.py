@@ -12,6 +12,7 @@ import torch
 
 from ..parallel import sharding
 from ..eval.metrics import NUM_KEYPOINTS, _metrics_segments, add_sadd_per_sample
+from ..utils.profiling import annotate
 
 __all__ = ['make_train_step', 'make_eval_step']
 
@@ -24,7 +25,10 @@ def make_train_step(model, loss_manager, optimizer, augment_fn=None,
     ``generator`` (on the batch's device) draws the dropout mask and is
     handed to ``augment_fn(imgs, kp, generator) -> (imgs, kp)`` first.
     ``metrics`` is ``[loss, ADD, SADD, accuracy]``, float32 on the device.
-    The state is updated in place."""
+    The state is updated in place.  The step's stages are spans:
+    ``train.augment``, ``train.forward`` (the model and the loss),
+    ``train.backward``, ``train.update`` (the gradients' all-reduce, the
+    optimizer, the EMA) and ``train.metrics``."""
     params = list(model.parameters())
     if ema_decay > 0:
         # the JAX package's float32 decay and its float32 complement
@@ -35,33 +39,37 @@ def make_train_step(model, loss_manager, optimizer, augment_fn=None,
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError('the state holds another model or optimizer')
         if augment_fn is not None:
-            imgs, gt_kp = augment_fn(imgs, gt_kp, generator)
-        kp, logits = model(imgs, cats=gt_cats, train=True,
-                           generator=generator)
-        loss, state.alwa = loss_manager.parse_losses(
-            kp, gt_kp, logits, gt_cats, state.step, state.alwa)
-        # every parameter gets a gradient, zeros where the loss does not
-        # reach it, as optax sees every leaf
-        optimizer.zero_grad(set_to_none=False)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        loss.backward()
-        sharding.all_reduce_mean([p.grad for p in params])
-        optimizer.step()
-        if ema_decay > 0:
-            ema = list(state.ema_params.values())
-            torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, [p.detach() for p in params],
-                                alpha=rest)
-        with torch.no_grad():
+            with annotate('tpudet3d_torch.train.augment'):
+                imgs, gt_kp = augment_fn(imgs, gt_kp, generator)
+        with annotate('tpudet3d_torch.train.forward'):
+            kp, logits = model(imgs, cats=gt_cats, train=True,
+                               generator=generator)
+            loss, state.alwa = loss_manager.parse_losses(
+                kp, gt_kp, logits, gt_cats, state.step, state.alwa)
+        with annotate('tpudet3d_torch.train.backward'):
+            # every parameter gets a gradient, zeros where the loss does
+            # not reach it, as optax sees every leaf
+            optimizer.zero_grad(set_to_none=False)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss.backward()
+        with annotate('tpudet3d_torch.train.update'):
+            sharding.all_reduce_mean([p.grad for p in params])
+            optimizer.step()
+            if ema_decay > 0:
+                ema = list(state.ema_params.values())
+                torch._foreach_mul_(ema, decay)
+                torch._foreach_add_(ema, [p.detach() for p in params],
+                                    alpha=rest)
+        with annotate('tpudet3d_torch.train.metrics'), torch.no_grad():
             add_sum, sadd_sum = add_sadd_per_sample(kp, gt_kp)
             acc = (logits.argmax(1) == gt_cats).float().mean()
             metrics = torch.stack([loss.detach().float(),
                                    add_sum.mean() / NUM_KEYPOINTS,
                                    sadd_sum.mean() / NUM_KEYPOINTS, acc])
             sharding.all_reduce_mean([metrics])
-        state.step += 1
+            state.step += 1
         return state, metrics
 
     return train_step
