@@ -32,7 +32,8 @@ Phases, each fatal on failure:
    1280×720 examples at batch 8, with the CLI's defaults at ``det_tresh``
    0, with ``--preset recall`` and with ``--int8`` (calibrated on each
    category's first frame, as the CLI does); check the reports and that
-   K1–K7 were launched; re-score the same lifted predictions with the plain K5 (same
+   K1–K7 were launched (counted by kernel name from a trace of the card's
+   activity, under which the run is timed); re-score the same lifted predictions with the plain K5 (same
    IoUs, same report text); hold the card's float32 EPnP lift against the
    float64 host lift; time examples/s and its split.
 6. Serve the flagship configuration from converted snapshots at full
@@ -47,9 +48,10 @@ Phases, each fatal on failure:
    moving boxes (tracks kept, each result equal to ``infer_batch`` of its
    frame, frames/s, the assignment route); the ``Detector`` wrapper over
    4 frames (K1 and K3 against their plain versions).  Each of these runs
-   counts every kernel's launches (K5–K7 too) and must give exactly the
-   path's own: one K1 and K3 a batch or frame, one K2 and K4 a regress
-   pass, no K5, K6 or K7.
+   counts every kernel's launches (K5–K7 too; a graphed ``infer_batch``'s
+   replay by kernel name from a device trace, ``drive_replay``) and must
+   give exactly the path's own: one K1 and K3 a batch or frame, one K2
+   and K4 a regress pass, no K5, K6 or K7.
 7. Serve int8: K6 and K7 against their plain versions bit for bit on
    every case of ``K6_CASES`` and ``K7_CASES`` (bf16 and f32, the stems'
    k×k, padded depths, M = 17, 49 and 128·49; K6 in channels-last and
@@ -57,10 +59,13 @@ Phases, each fatal on failure:
    taken), ``torch._int_mm`` against the exact product; MNv3-large-21k
    and the el0 engine of phase 6's snapshots calibrated by
    ``calibrate_engine`` on the 16 frames and served int8 through
-   ``infer_batch`` (one K6 and one K7 a quantized conv, counted exactly),
-   their rows equal to the same engine's through the plain K6 and K7
-   (cuDNN's deterministic algorithms), their drift from bf16, K6,
-   ``_int_mm`` and K7 timed over one call's convs (K6's route of every
+   ``infer_batch`` (one K6 and one K7 a quantized conv in a replay,
+   counted exactly from a device trace), the replay's rows equal bit for
+   bit to the eager path's on the uploaded frames and those to its rows
+   through the plain K6 and K7 (cuDNN's deterministic algorithms), their
+   drift
+   from bf16, K6, ``_int_mm`` and K7 timed over the convs of one eager
+   call (K6's route of every
    conv, none ``strided``, and its time split by route), launches and
    device time per call and frames/s and latency at batch 16, bf16 and
    int8 in turns; el0 exported from its snapshot by ``tools/export.py``,
@@ -1062,19 +1067,25 @@ def eval_path(dev, wrappers):
                              portrait=True)                  # warm-up
     torch.cuda.synchronize()
 
-    for f in wrappers:
-        f.launches = 0
-    runs = []
-    for name, args, engine in engines:
-        for cls in EVAL_CLASSES:
-            ev, timings = Recording(), {}
-            t0 = time.perf_counter()
-            evaluate_category(engine, iter(data[cls]), args.batch,
-                              args.vis_thresh, evaluator=ev, timings=timings)
-            timings['wall'] = time.perf_counter() - t0
-            runs.append((name, cls, ev, timings))
-    torch.cuda.synchronize()
-    launches = [f.launches for f in wrappers]
+    def evaluate():
+        runs = []
+        for name, args, engine in engines:
+            for cls in EVAL_CLASSES:
+                ev, timings = Recording(), {}
+                t0 = time.perf_counter()
+                evaluate_category(engine, iter(data[cls]), args.batch,
+                                  args.vis_thresh, evaluator=ev,
+                                  timings=timings)
+                timings['wall'] = time.perf_counter() - t0
+                runs.append((name, cls, ev, timings))
+        return runs
+    # the engines replay their graphs, which call no kernel wrapper: the
+    # launches are counted by kernel name from a trace, warmed by a replay
+    # of the first engine
+    first = np.stack([e[0] for e in
+                      data[EVAL_CLASSES[0]][:engines[0][1].batch]])
+    runs, launches = traced_launches(
+        wrappers, evaluate, warm=lambda: engines[0][2].infer_batch(first))
     print(f'evaluation path: {len(EVAL_SETTINGS)} settings x '
           f'{len(EVAL_CLASSES)} categories x {EVAL_EXAMPLES} examples of '
           f'{EVAL_FRAME[0]}x{EVAL_FRAME[1]}, launches K1-K7 = {launches}')
@@ -1205,6 +1216,63 @@ def drive(wrappers, fn):
     return out, [f.launches for f in wrappers]
 
 
+# the kernels each wrapper of K1-K7 launches, as a device trace names them
+KERNEL_NAMES = (('resize_tiled_u8_kernel',), ('crop_band_kernel',),
+                ('decode_nms_kernel',), ('head_epilogue_kernel',),
+                ('box3d_iou_kernel',),
+                ('quantize_rows_kernel', 'quantize_staged_kernel',
+                 'quantize_input_kernel'), ('int8_rescale_kernel',))
+REPLAYS_TRACED = 3           # the replays a drive_replay counts over
+
+
+def traced_launches(wrappers, fn, calls=1, warm=None):
+    """``fn()`` ``calls`` times under a profile of the card's activity
+    alone: the last call's result and the launches a call of each
+    wrapper's kernels (:data:`KERNEL_NAMES`), counted by name from the
+    trace, eager and replayed alike.  The tracer loses the first events
+    of a session while it starts, so a warm-up step (``warm()``, by
+    default ``fn()``) is traced and thrown away first (the profiler's
+    schedule).  A session that records no device activity is repeated,
+    up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            (warm or fn)()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                out = fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = device_events(prof)
+        if events:
+            break
+    return out, [sum(any(n in e.name for n in names) for e in events)
+                 // calls for names, _ in zip(KERNEL_NAMES, wrappers)]
+
+
+def drive_replay(wrappers, fn):
+    """``fn()``, a call of a card engine's ``infer_batch``, once (the
+    capture of its graph, if its key is new) and then
+    :data:`REPLAYS_TRACED` times under :func:`traced_launches`: returns
+    the last call's result and the launches a call.  A replay calls no
+    kernel wrapper, so the wrappers' own counts must stay 0 over it.
+    Without a card the call is eager and :func:`drive` counts it."""
+    if not torch.cuda.is_available():
+        return drive(wrappers, fn)
+    fn()
+    torch.cuda.synchronize()
+    for f in wrappers:
+        f.launches = 0
+    out, n = traced_launches(wrappers, fn, REPLAYS_TRACED)
+    expect(all(f.launches == 0 for f in wrappers),
+           f'a replay called the kernel wrappers: '
+           f'{[f.launches for f in wrappers]}')
+    return out, n
+
+
 def moving_frames(n, shape=None, seed=7):
     """n BGR frames of ``shape`` (default FRAME): noise with 3 flat boxes
     moving 3 px right and 1 px down a frame."""
@@ -1265,8 +1333,10 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
     h, w = FRAME[:2]
     out = {'launches': {}}
 
-    def counted(name, fn, expected):
-        res, n = drive(wrappers, fn)
+    def counted(name, fn, expected, replayed=False):
+        """``fn()`` counted by :func:`drive`, or by :func:`drive_replay`
+        where it is a graphed ``infer_batch``."""
+        res, n = (drive_replay if replayed else drive)(wrappers, fn)
         print(f'phase 6 {name}: launches K1-K7 = {n}')
         want = [expected.get(f, 0) for f in wrappers]
         expect(n == want, f'{name}: launches {n}, expected {want}')
@@ -1299,7 +1369,7 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
            'the config without EMA does not serve the raw weights')
     batch = counted('el0 infer_batch(16)',
                     lambda: engine.infer_batch(frames_np),
-                    per_pass(engine, 1))
+                    per_pass(engine, 1), replayed=True)
     check_results(batch, h, w)
     n_det = sum(len(r['scores']) for r in batch)
     expect(n_det > 0, 'el0: no detection')
@@ -1318,7 +1388,7 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
     # (c) the r288 config: 288² crops
     expect(r288.cfg.crop_size == (288, 288), 'r288 crop size')
     res = counted('r288 infer_batch(16)', lambda: r288.infer_batch(
-        frames_np), per_pass(r288, 1))
+        frames_np), per_pass(r288, 1), replayed=True)
     check_results(res, h, w)
     expect(sum(len(r['scores']) for r in res) > 0, 'r288: no detection')
     del r288
@@ -1759,7 +1829,20 @@ def int8_path(dev, wrappers, frames_np, iters):
                (engine.det_model, engine.reg_model)]
         expect(len(scales[1]) > 0, f'{name}: the regressor was not '
                'calibrated (no detection)')
-        res, n = drive(wrappers, lambda: engine.infer_batch(frames_np))
+        frames = engine._upload(frames_np)
+
+        def eager():
+            return engine._readback([engine._pipeline_batch(frames, h, w)])
+        # the main path's int8 rows come from a replay (the switch is part
+        # of the graph's key); a replayed graph runs no Python, so the
+        # plain K6/K7 and the recorder below see the eager path on the
+        # uploaded frames, which the replay must equal
+        with cudnn_deterministic():
+            res, n = drive_replay(wrappers,
+                                  lambda: engine.infer_batch(frames_np))
+            again = eager()
+            with plain_quant(qops):
+                plain = eager()
         print(f'phase 7 {name} int8 infer_batch(16): launches '
               f'K1/K2/K3/K4/K5/K6/K7 = {n} ({n_q[0]} + {n_q[1]} '
               'quantized convs)')
@@ -1768,18 +1851,14 @@ def int8_path(dev, wrappers, frames_np, iters):
         out['launches'][name] = n
         check_results(res, h, w)
         expect(sum(len(r['scores']) for r in res) > 0, f'{name}: no row')
-        with cudnn_deterministic():
-            again = engine.infer_batch(frames_np)
-            with plain_quant(qops):
-                plain = engine.infer_batch(frames_np)
+        same_results(res, again, f'{name} int8 replayed against eager')
         rows_err = same_results(again, plain,
                                 f'{name} int8 against the plain K6/K7')
         drift = row_drift(res, bf16)
         print(f'{name} int8 against bf16 on 16 frames: {drift}')
         with recording_int8_convs(quant) as calls:
-            engine.infer_batch(frames_np)
+            engine._pipeline_batch(frames, h, w)
         times = int8_kernel_times(qops, calls)
-        frames = engine._upload(frames_np)
         profile = {}
         for mode in ('bf16', 'int8'):
             engine.cfg.det_int8_scales, engine.cfg.reg_int8_scales = \
@@ -2463,7 +2542,7 @@ def loop_path(dev, wrappers, frames_np, gpu):
             want = state.ema_params.get(k, v)
             expect(torch.equal(served[k], want), f'served {k} is not the '
                    f'trained EMA')
-    res, n = drive(wrappers, lambda: engine.infer_batch(frames_np))
+    res, n = drive_replay(wrappers, lambda: engine.infer_batch(frames_np))
     out['launches']['trained el0 infer_batch(16)'] = n
     expect(n == [1, 1, 1, 1, 0, 0, 0], f'serving the trained snapshot: '
            f'launches {n}')
@@ -2834,8 +2913,8 @@ def detector_training_path(dev, wrappers, frames_np, gpu):
     k3_only = [0, 0, 1, 0, 0, 0, 0]
     out = {'launches': {}, 'overrides': DET_OVERRIDES}
 
-    def counted(name, fn, want):
-        res, n = drive(wrappers, fn)
+    def counted(name, fn, want, replayed=False):
+        res, n = (drive_replay if replayed else drive)(wrappers, fn)
         out['launches'][name] = n
         expect(n == want, f'{name}: launches {n}, want {want}')
         return res
@@ -2964,7 +3043,8 @@ def detector_training_path(dev, wrappers, frames_np, gpu):
         expect(torch.equal(served[k], v), f'served {k} is not the trained '
                f'weight')
     res = counted('trained detector infer_batch(16)',
-                  lambda: engine.infer_batch(frames_np), [1, 1, 1, 1, 0, 0, 0])
+                  lambda: engine.infer_batch(frames_np), [1, 1, 1, 1, 0, 0, 0],
+                  replayed=True)
     check_results(res, *FRAME[:2])
     memory = TwoStageEngine(copy.deepcopy(run.model), engine.reg_model,
                             engine.cfg, device=dev)
@@ -3066,8 +3146,7 @@ DP_DET_OVERRIDES = dict(synthetic_length=256, max_epochs=1)
 SHARD_CALLS = 10
 OPTUNA_ARGS = ('-e', '1', '--n_trials', '2', '--n_training_iterations',
                '0.25', '--n_validate_iterations', '0.5', '--disable_store_log')
-K1_K4_NAMES = ('resize_tiled_u8_kernel', 'crop_band_kernel',
-               'decode_nms_kernel', 'head_epilogue_kernel')
+K1_K4_NAMES = tuple(names[0] for names in KERNEL_NAMES[:4])
 
 
 def seeded_state_dict(contract, seed):
@@ -4034,7 +4113,7 @@ def golden_serving(manifest, arrays, case, dev, wrappers, count):
     res, launches = {}, {}
 
     def outputs(engine, what):
-        rows, launches[f'{case} {what} infer_batch'] = drive(
+        rows, launches[f'{case} {what} infer_batch'] = drive_replay(
             wrappers, lambda: engine.infer_batch(frames))
         up = upload(frames, dev)
         (_, logits, deltas, _, _), launches[f'{case} {what} detect'] = \

@@ -1,5 +1,6 @@
 """The port's spans (``utils/profiling.py`` ``annotate``) on the CPU: the
-serving engine's four stage spans and the train step's five, present
+serving engine's four stage spans, its graph path's ``serve.capture`` and
+``serve.replay``, and the train step's five, present
 under a profiler and absent without one, outputs unchanged by tracing,
 and ``span_times``' attribution of device time to spans."""
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from torch_port_common import REPO, one_cpu_thread
+from torch_port_graph_stub import graph_on_cpu, stub_graphs  # noqa: F401
 
 from tpudet3d_torch.core import AttrDict, read_py_config
 from tpudet3d_torch.detect import SSDDetector
@@ -127,6 +129,55 @@ def test_async_path_spans(engine):
         engine.wait_and_grab()
     assert [s.name for s in _spans(_cpu_events(prof), 'serve')] == \
         [f'tpudet3d_torch.serve.{s}' for s in SERVE]
+
+
+def test_graph_path_spans(engine, monkeypatch, stub_graphs):  # noqa: F811
+    """On the graph path (its capture stood in for on the CPU) the first
+    call of a key shows ``serve.upload``, ``serve.capture`` and
+    ``serve.readback``, the warm-up's and the capture's ``serve.detect``
+    and ``serve.regress`` inside ``serve.capture``; a replay shows
+    ``serve.upload``, ``serve.replay`` and ``serve.readback``.  The spans
+    tile each call under the caller's range.  Without a profiler none is
+    made."""
+    graphed = graph_on_cpu(TwoStageEngine(engine.det_model, engine.reg_model,
+                                          engine.cfg, device='cpu'),
+                           monkeypatch)
+    made = []
+    real = torch.profiler.record_function
+
+    def spy(name, *args):
+        made.append(name)
+        return real(name, *args)
+    monkeypatch.setattr(torch.profiler, 'record_function', spy)
+    frames = _frames()
+    graphed.infer_batch(frames)
+    graphed.infer_batch(frames)
+    assert made == [] and graphed.graph_stats['replays'] == 1
+    graphed._graphs = {}
+    for stages in (['upload', 'capture', 'readback'],
+                   ['upload', 'replay', 'readback']):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with profiling.annotate('caller'):
+                graphed.infer_batch(frames)
+        events = _cpu_events(prof)
+        caller = next(e for e in events if e.name == 'caller')
+        spans = [s for s in _spans(events, 'serve')
+                 if s.cpu_parent is caller]
+        assert [s.name for s in spans] == [f'tpudet3d_torch.serve.{s}'
+                                           for s in stages]
+        inner = [s.name.rsplit('.', 1)[1] for s in _spans(events, 'serve')
+                 if s not in spans]
+        if stages[1] == 'capture':   # the stand-in's replay runs the path
+            assert inner == ['detect', 'regress'] * 2
+        assert all(any(a is spans[1] for a in _ancestors(s))
+                   for s in _spans(events, 'serve') if s not in spans)
+        for e in events:
+            if e.thread == caller.thread and e is not caller and \
+                    caller.time_range.start <= e.time_range.start \
+                    < caller.time_range.end:
+                assert e in spans or any(a in spans for a in _ancestors(e))
+    assert graphed.graph_stats == {'captures': 2, 'replays': 2, 'eager': 0}
 
 
 def test_train_step_spans():

@@ -15,9 +15,27 @@ device until the caller reads the result.
 With ``det_int8_scales`` / ``reg_int8_scales`` (``infer/quant.py``
 ``calibrate_engine``) the detector's and the regressor's forwards run under
 ``intercepting``: their calibrated dense ``ConvBN`` convs go through the int8
-path (K6, ``torch._int_mm``, K7), as the JAX program's do.  PyTorch runs
-eagerly, so the JAX engine's per-shape executable cache has no counterpart
-yet (CUDA-graph capture is a later slice).
+path (K6, ``torch._int_mm``, K7), as the JAX program's do.
+
+On an unsharded CUDA engine ``infer_batch`` replays a CUDA graph of the
+whole path, from the uploaded frames to the packed rows: the counterpart
+of the JAX engine's per-shape executable cache.  The first call of a key
+(the frames' shape and dtype, ``h``, ``w``, the configuration by value,
+int8 scales included, the versions of the weights served int8, and
+cuDNN's and cuBLAS's algorithm switches) runs the path eagerly on a side
+stream, which is its answer and lets the kernels, cuDNN and the int8
+weight cache set up outside the capture, then captures it into a graph
+with a static input and output; every later call of the key copies its
+pinned frames into the static input and replays, one graph launch in
+place of ~800 launches from Python.  The kernels in the graph are the
+same hand-written K1–K4 (and K6/K7) launched by the same C entries on the
+capturing stream; a replay calls no kernel wrapper, so the wrappers'
+``launches`` count the eager path's launches (a capture's warm-up and
+capture both) and a device trace counts a replay's.  At most
+:data:`MAX_GRAPHS` graphs are kept, the oldest evicted first.  A CPU
+engine, ``shard(...)``, ``__call__`` and ``run_async`` stay eager.
+``graph_stats`` counts the captures, replays and eager calls of
+``infer_batch``.
 
 ``shard(devices)`` serves ``infer_batch`` over several devices, as the
 JAX engine's ``shard(mesh)`` does over a mesh: each listed device holds a
@@ -27,14 +45,20 @@ over), and a call splits its frames into equal slices, runs each slice's
 fused path on its device's own stream and gathers the packed rows in
 order.  A device may be listed more than once (two replicas on one card
 run concurrently on two streams).  Setting ``det_model`` or
-``reg_model`` drops the replicas, as JAX's ``det_vars`` / ``reg_vars``
-setters drop its compiled programs.
+``reg_model`` drops the replicas and the graphs, as JAX's ``det_vars`` /
+``reg_vars`` setters drop its compiled programs; setting ``anchors``
+drops the graphs.  ``cfg`` may be edited or assigned freely: the key
+holds it by value.  A graph reads the models' parameters and buffers, the
+anchors and the int8 weights where they lay at its capture: load new
+weights in place (``load_state_dict``; a weight served int8 then has a new
+version, so the next call captures again) or assign the model again.
 """
 
 import copy
+import dataclasses
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +69,13 @@ from ..detect.nms import decode_detections
 from ..ops.image import crop_and_resize, resize_bilinear
 from ..utils.profiling import annotate
 from .epilogue import head_epilogue, refine_boxes, tta_flip_average
-from .quant import intercepting
+from .quant import int8_versions, int8_weights, intercepting
 
 __all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
-           'tta_flip_average', 'upload', 'REG_MEAN', 'REG_STD', 'REG_SCALE',
-           'REG_OFFSET']
+           'tta_flip_average', 'upload', 'MAX_GRAPHS', 'REG_MEAN', 'REG_STD',
+           'REG_SCALE', 'REG_OFFSET']
+
+MAX_GRAPHS = 16
 
 REG_MEAN = (0.5931, 0.4690, 0.4229)
 REG_STD = (0.2471, 0.2214, 0.2157)
@@ -103,15 +129,59 @@ class EngineConfig:
     host_downscale: int = 1
 
 
+def _host_frames(frames, device):
+    """Host uint8 frames as a tensor, in pinned memory for a card."""
+    t = torch.as_tensor(np.ascontiguousarray(frames))
+    return t.pin_memory() if device.type == 'cuda' else t
+
+
 def upload(frames, device):
     """Host uint8 frames → a tensor on ``device``, through pinned memory
     and without waiting for the copy on the card; the span
     ``tpudet3d_torch.serve.upload``."""
     with annotate('tpudet3d_torch.serve.upload'):
-        t = torch.as_tensor(np.ascontiguousarray(frames))
-        if device.type == 'cuda':
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
+        return _host_frames(frames, device).to(device, non_blocking=True)
+
+
+def warm_up(fn, device):
+    """``fn()`` on a side stream of the card ``device``, after the work
+    already queued on its current stream, which then waits for it."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    return out
+
+
+def capture_graph(fn, device):
+    """``fn()`` captured into a CUDA graph on the card ``device``, after a
+    warm-up: returns the graph and ``fn``'s output, which each
+    ``graph.replay()`` writes again."""
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: another thread's CUDA calls (a loader's, say) do not
+    # fail this thread's capture
+    with torch.cuda.device(device), torch.cuda.graph(
+            graph, capture_error_mode='thread_local'):
+        out = fn()
+    return graph, out
+
+
+class _Graph(NamedTuple):
+    """A captured path: its static input and output, the graph, and the
+    int8 weights it reads."""
+    static_in: torch.Tensor
+    graph: object
+    static_out: torch.Tensor
+    held: list
+
+
+def _by_value(v):
+    """A configuration field as a key: dicts and lists as tuples."""
+    if isinstance(v, dict):
+        return tuple(sorted(v.items()))
+    return tuple(v) if isinstance(v, list) else v
 
 
 def _canonical(device):
@@ -150,7 +220,10 @@ class TwoStageEngine:
         self.anchors = torch.from_numpy(generate_anchors()).to(self.device)
         self._pending = []   # FIFO of in-flight results
         self._consts = {}
+        self.graph_stats = {'captures': 0, 'replays': 0, 'eager': 0}
 
+    # a graph reads what these held at its capture: assigning one drops
+    # the graphs (and the models' replicas)
     @property
     def det_model(self):
         return self._det_model
@@ -159,6 +232,7 @@ class TwoStageEngine:
     def det_model(self, model):
         self._det_model = model
         self._replicas = None
+        self._graphs = {}
 
     @property
     def reg_model(self):
@@ -168,6 +242,16 @@ class TwoStageEngine:
     def reg_model(self, model):
         self._reg_model = model
         self._replicas = None
+        self._graphs = {}
+
+    @property
+    def anchors(self):
+        return self._anchors
+
+    @anchors.setter
+    def anchors(self, anchors):
+        self._anchors = anchors
+        self._graphs = {}
 
     def _const(self, values):
         """A float32 device tensor for ``values``, made once."""
@@ -354,14 +438,81 @@ class TwoStageEngine:
             packed = np.concatenate([o.cpu().numpy() for o in outs])
             return [_unpack(p[np.nonzero(p[:, 25] > 0)[0]]) for p in packed]
 
+    # --- CUDA graphs ------------------------------------------------------
+    def _graphed(self):
+        """Whether ``infer_batch`` replays graphs: an unsharded card."""
+        return self.device.type == 'cuda' and not self._replicas
+
+    def _graph_key(self, frames, h, w):
+        """What a graph of the path fixes: the frames' shape and dtype,
+        ``h``, ``w``, the configuration by value (margins and int8 scales
+        included), the versions of the weights it reads as int8 copies
+        made at its capture, and the switches by which cuDNN and cuBLAS
+        pick their algorithms."""
+        cfg, cudnn = self.cfg, torch.backends.cudnn
+        return (tuple(frames.shape), str(frames.dtype), h, w,
+                tuple(_by_value(getattr(cfg, f.name))
+                      for f in dataclasses.fields(cfg)),
+                int8_versions(self.det_model, cfg.det_int8_scales),
+                int8_versions(self.reg_model, cfg.reg_int8_scales),
+                cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def _graph_batch(self, frames, h, w):
+        """frames ``[N,H,W,3]`` uint8 on the host → packed ``[N, max_det,
+        26]`` on the card, by the key's graph (captured on its first
+        call); the spans ``serve.upload``, then ``serve.replay`` or
+        ``serve.capture``."""
+        key = self._graph_key(frames, h, w)
+        with annotate('tpudet3d_torch.serve.upload'):
+            host = _host_frames(frames, self.device)
+        g = self._graphs.get(key)
+        if g is None:
+            return self._capture(key, host, h, w)
+        with annotate('tpudet3d_torch.serve.replay'):
+            g.static_in.copy_(host, non_blocking=True)
+            g.graph.replay()
+        self.graph_stats['replays'] += 1
+        return g.static_out
+
+    def _capture(self, key, host, h, w):
+        """The first call of ``key``: the path run eagerly on a side stream
+        (this call's answer), then captured; the span ``serve.capture``."""
+        cfg = self.cfg
+        with annotate('tpudet3d_torch.serve.capture'):
+            static_in = torch.empty(host.shape, dtype=host.dtype,
+                                    device=self.device)
+            static_in.copy_(host, non_blocking=True)
+
+            def path():
+                return self._pipeline_core(static_in, h, w,
+                                           cfg.crop_margin_px,
+                                           cfg.refine_margin_px)
+            answer = warm_up(path, self.device)
+            graph, static_out = capture_graph(path, self.device)
+            held = (int8_weights(self.det_model, cfg.det_int8_scales)
+                    + int8_weights(self.reg_model, cfg.reg_int8_scales))
+            if len(self._graphs) >= MAX_GRAPHS:
+                self._graphs.pop(next(iter(self._graphs)))
+            self._graphs[key] = _Graph(static_in, graph, static_out, held)
+        self.graph_stats['captures'] += 1
+        return answer
+
     # --- batched (server) API ---------------------------------------------
     def infer_batch(self, frames):
         """frames ``[N,H,W,3]`` uint8 → list of per-frame result dicts.
         After ``shard(devices)`` N must split evenly over the replicas.
-        Each stage is a span (``serve.upload``, ``serve.detect``,
-        ``serve.regress``, ``serve.readback``) and the spans tile the
-        call."""
+        Each stage is a span and the spans tile the call: eagerly
+        ``serve.upload``, ``serve.detect``, ``serve.regress``,
+        ``serve.readback``; on a graph's replay ``serve.upload``,
+        ``serve.replay``, ``serve.readback``; on its capture
+        ``serve.upload``, ``serve.capture`` (which holds ``serve.detect``
+        and ``serve.regress`` twice: warm-up and capture),
+        ``serve.readback``."""
         h, w = frames.shape[1:3]
+        if self._graphed():
+            return self._readback([self._graph_batch(frames, h, w)])
+        self.graph_stats['eager'] += 1
         if self._replicas:
             outs = self._sharded_batch(np.asarray(frames), h, w)
         else:

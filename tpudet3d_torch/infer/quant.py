@@ -29,10 +29,11 @@ from torch import nn
 
 from ..models import layers
 from ..models.layers import ConvBN
-from ..ops.quant import int8_conv
+from ..ops.quant import int8_conv, int8_weight
 
 __all__ = ['calibrate', 'intercepting', 'quantized_apply', 'calibrate_engine',
-           'serve_int8', 'dense_conv_paths', 'quantized_conv_paths']
+           'serve_int8', 'dense_conv_paths', 'quantized_conv_paths',
+           'int8_weights', 'int8_versions']
 
 _QUANTIZED = weakref.WeakKeyDictionary()     # model -> {conv: path}
 
@@ -119,6 +120,34 @@ def calibrate(model, batches: Iterable, method: str = 'absmax',
     return stats
 
 
+def _scaled_convs(model, act_scales) -> Dict[nn.Conv2d, float]:
+    """``{conv: scale}`` of the convs that :func:`intercepting` serves
+    int8: the quantizable ones with a non-zero scale."""
+    return {m: float(act_scales[path])
+            for m, path in quantized_conv_paths(model).items()
+            if act_scales.get(path)}
+
+
+def int8_weights(model, act_scales):
+    """The int8 weights and rescales (``ops/quant.py`` ``int8_weight``)
+    that ``model``'s forward under ``intercepting(model, act_scales)``
+    reads.  A CUDA graph captured there reads them where they lay at its
+    capture, so it holds them: a later calibration that makes new ones
+    cannot free them under it."""
+    return [int8_weight(conv, s_x) for conv, s_x in
+            _scaled_convs(model, act_scales or {}).items()]
+
+
+def int8_versions(model, act_scales) -> tuple:
+    """The versions of the weights that :func:`int8_weights` quantizes: a
+    weight loaded in place (``load_state_dict``) has a new one, so a CUDA
+    graph keyed on them is captured again with new int8 copies."""
+    if not act_scales:
+        return ()
+    return tuple(conv.weight._version for conv, path in
+                 quantized_conv_paths(model).items() if act_scales.get(path))
+
+
 @contextmanager
 def intercepting(model, act_scales: Optional[Dict[str, float]]):
     """``with intercepting(model, scales): model(...)`` serves ``model``'s
@@ -128,9 +157,7 @@ def intercepting(model, act_scales: Optional[Dict[str, float]]):
     if not act_scales:
         yield
         return
-    convs = {m: float(act_scales[path])
-             for m, path in quantized_conv_paths(model).items()
-             if act_scales.get(path)}
+    convs = _scaled_convs(model, act_scales)
 
     def quantized(x, layer):
         s_x = convs.get(layer)

@@ -6,7 +6,8 @@ int8 conv of a MNv3 and an el0 ``infer_batch(16)`` call of 720p frames.
 Builds the default engine (MNv2-SSD-300 + MNv3-large-21k) and the el0
 engine of ``chip_smoke.py`` phase 7 (seeded snapshots), calibrates each
 with ``calibrate_engine`` on 16 frames and records every int8 conv of one
-``infer_batch(16)`` call (``chip_smoke.recording_int8_convs``).  Checks
+eager ``_pipeline_batch(16)`` call on the uploaded frames, the path that
+``infer_batch`` graphs (``chip_smoke.recording_int8_convs``).  Checks
 K6 against its plain version bit for bit on each, then times it on the
 device (``torch.profiler``) and back to back (CUDA events), summed over
 the call and split into the stems (k×k), the unpadded 1×1 convs (C = Kp)
@@ -150,8 +151,10 @@ def run_tree(tree, checked=True):
                     reg_checkpoint=paths['regressor'], det_conf=0.0,
                     device=dev)
             quant.serve_int8(engine, list(frames))
+            # eagerly: a replayed CUDA graph calls no int8 conv from Python
+            up = engine._upload(frames)
             with recording_int8_convs(quant) as calls:
-                engine.infer_batch(frames)
+                engine._pipeline_batch(up, *FRAME[:2])
             res[name] = conv_times(qops, calls, checked)
             del engine, calls
             torch.cuda.empty_cache()

@@ -16,7 +16,11 @@ memory, device time by kernel group and by kernel, and the host and device
 ms a call of each ``tpudet3d_torch.serve.*`` span (``utils/profiling.py``
 ``span_times``: ``_pipeline_batch`` runs ``serve.detect`` and
 ``serve.regress``); ``--out`` also gets the launches per call of every
-kernel by name.  Needs CUDA.
+kernel by name.  Then the same frames from the host through
+``infer_batch``, which replays the engine's CUDA graph of that path: its
+wall and device busy time a call, its spans (``serve.upload``,
+``serve.replay``, ``serve.readback``) and the engine's ``graph_stats``
+(captures, replays, eager calls).  Needs CUDA.
 """
 
 import argparse
@@ -60,6 +64,46 @@ def group_of(name):
     return 'other'
 
 
+def _kernels(prof):
+    """``{name: (device ms, launches)}`` of a finished profile; device-side
+    annotation ranges span other events and are left out."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            t, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return kernels
+
+
+def profile_graphed(engine, frames, steps):
+    """``infer_batch`` on host ``frames`` after three warm-up calls (the
+    first captures the graph): wall and busy ms a call, device events a
+    call, the serving spans' ms a call and ``graph_stats``."""
+    for _ in range(3):
+        engine.infer_batch(frames)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.infer_batch(frames)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.infer_batch(frames)
+    kernels = _kernels(prof)
+    return {
+        'wall_ms_per_call': wall_ms,
+        'device_busy_ms_per_call': sum(t for t, _ in kernels.values())
+        / steps,
+        'events_per_call': sum(n for _, n in kernels.values()) / steps,
+        'spans_ms_per_call': {
+            name: {'host': t['host_ms'] / steps,
+                   'device': t['device_ms'] / steps}
+            for name, t in span_times(prof, SPAN_PREFIX + 'serve.').items()},
+        'graph_stats': dict(engine.graph_stats),
+    }
+
+
 def profile_batch(engine, batch, steps):
     h, w = FRAME[:2]
     gen = torch.Generator(device='cuda').manual_seed(batch)
@@ -81,13 +125,7 @@ def profile_batch(engine, batch, steps):
             engine._pipeline_batch(frames, h, w)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {}
-    for e in prof.events():
-        # device-side annotation ranges span other events: left out
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not e.is_user_annotation:
-            t, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    kernels = _kernels(prof)
     busy_ms = sum(t for t, _ in kernels.values()) / steps
     groups = {}
     for name, (t, n) in kernels.items():
@@ -95,6 +133,7 @@ def profile_batch(engine, batch, steps):
         g[0] += t / steps
         g[1] += n / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    graphed = profile_graphed(engine, frames.cpu().numpy(), steps)
     return {
         'batch': batch, 'wall_ms_per_call': wall_ms,
         'profiled_wall_ms_per_call': profiled_ms,
@@ -114,6 +153,7 @@ def profile_batch(engine, batch, steps):
             name: {'host': t['host_ms'] / steps,
                    'device': t['device_ms'] / steps}
             for name, t in span_times(prof, SPAN_PREFIX + 'serve.').items()},
+        'infer_batch_graphed': graphed,
     }
 
 
@@ -144,6 +184,14 @@ def main():
                   f"{r['group_launches_per_call'][g]:6.0f} launches")
         print(f"  {'span':31s} {'host ms':>8s} {'device ms':>10s}")
         for name, t in r['spans_ms_per_call'].items():
+            print(f"  {name:31s} {t['host']:8.3f} {t['device']:10.3f}")
+        g = r['infer_batch_graphed']
+        print(f"  infer_batch from the host, graphed: wall "
+              f"{g['wall_ms_per_call']:.3f} ms, device busy "
+              f"{g['device_busy_ms_per_call']:.3f} ms, "
+              f"{g['events_per_call']:.0f} device events; graph_stats "
+              f"{g['graph_stats']}")
+        for name, t in g['spans_ms_per_call'].items():
             print(f"  {name:31s} {t['host']:8.3f} {t['device']:10.3f}")
     if args.out:
         with open(args.out, 'w') as f:
