@@ -29,6 +29,7 @@ GROUPS = (
     ('K2 crop', ('crop_band_kernel',)),
     ('K3 decode_nms', ('decode_nms_kernel',)),
     ('K4 head_epilogue', ('head_epilogue_kernel',)),
+    ('collective', ('nccl',)),
     ('convolution', ('conv', 'xmma', 'cudnn', 'implicit', 'depthwise',
                      'winograd', 'fprop', 'sm90', 'nhwc')),
     ('matmul', ('gemm', 'cutlass', 'cublas')),
@@ -37,7 +38,6 @@ GROUPS = (
     ('sort / index', ('sort', 'radix', 'gather', 'scatter', 'index',
                       'arange')),
     ('optimizer', ('multi_tensor_apply',)),
-    ('collective', ('nccl',)),
     ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
     ('copy / fill', ('copy', 'memcpy', 'memset', 'fill')),
 )

@@ -94,8 +94,8 @@ def build_engine(cfg, det_sd, reg_sd, device):
 
 
 class ReferenceEngine:
-    """The control: the reference put in the program's place, every conv's
-    and dense layer's input and weight rounded to float8 (the precision
+    """The control: the reference put in the program's place, every conv's,
+    dense layer's and matmul's operands rounded to float8 (the precision
     below the configuration's bfloat16), answering as ``infer_batch``."""
 
     def __init__(self, cfg, det_sd, reg_sd, device):
@@ -321,7 +321,9 @@ def run(ctx):
 
 def traced(engine, pool, answers, cfg, tr, calls, window_s, n, dev):
     """``n`` more calls under ``torch.profiler``: the trace the per-layer
-    readers take their numbers from."""
+    readers take their numbers from.  ``bounds`` holds, for each kernel
+    of the regressor's backbone file that it counts, its least time in
+    each traced call (none for the backbones of ``BACKBONES``)."""
     def call(i):
         b = (calls + i) % len(pool)
         answers[b].append(engine.infer_batch(pool[b]))
@@ -360,7 +362,11 @@ def traced(engine, pool, answers, cfg, tr, calls, window_s, n, dev):
         k1_bound_s=yardstick.bound_s(
             yardstick.k1_bytes(batch, h, w, (size, size), itemsize),
             yardstick.k1_ops(batch, h, w, (size, size))),
-        k2_bound_s=k2, breakdown=bd)
+        k2_bound_s=k2, bounds=yardstick.backbone_bounds(
+            cfg['regressor']['backbone'],
+            batch * cfg['serve']['max_detections'], crop, itemsize, False,
+            n),
+        breakdown=bd)
 
 
 def _gc_clock():

@@ -154,22 +154,9 @@ def run(ctx):
     state, step = build_state(cfg, init, dev)
     gen = torch.Generator(device=dev).manual_seed(
         inputs.stream_seed(ctx.seed, 'augment'))
-    named = list(state.model.named_parameters())
     beta1 = float(cfg['train']['optim']['betas'][0])
     marks.append(('program', time.perf_counter()))
-    metrics = []
-    for i in range(SETUP_STEPS):
-        metrics.append(step(state, *pool[i], gen)[1])
-        if i == 0:
-            grads = {k: _host(state.optimizer.state[p]['exp_avg'])
-                     / (1.0 - beta1) for k, p in named}
-    prog = dict(
-        losses=[float(m[0]) for m in metrics],
-        grads=grads,
-        params={k: _host(p) for k, p in named},
-        ema={k: _host(v) for k, v in state.ema_params.items()},
-        stats={k: _host(v)
-               for k, v in state.model.named_buffers() if 'running' in k})
+    prog = first_steps(step, state, pool, gen, beta1)
     cuda(dev, torch.cuda.synchronize, dev)
     marks.append(('first steps', time.perf_counter()))
     setup_s = time.perf_counter() - ctx.t0
@@ -190,7 +177,7 @@ def run(ctx):
         trace = traced(step, state, pool, gen, steps, cfg, tr, window_s,
                        done, ctx.trace_calls, dev)
     peak = cuda(dev, torch.cuda.max_memory_allocated, dev) or 0
-    del state, step, named
+    del state, step
     cuda(dev, torch.cuda.empty_cache)
     numbers = judge(ref, init, pool, prog, cfg, ctx.seed, dev, ctx.control)
     e2e = {'train_images_per_s': done * batch / window_s, 'setup_s': setup_s}
@@ -198,6 +185,28 @@ def run(ctx):
                 memory_peak_bytes=int(peak), trace=trace,
                 window=dict(steps=done, window_s=window_s,
                             setup=_split(ctx.t0, marks)))
+
+
+def first_steps(step, state, pool, gen, beta1):
+    """The state's first :data:`SETUP_STEPS` steps, through the window's own
+    call on the pool's first batches; what the program made of them, on
+    the host: each step's loss, the first gradient as AdamW received it
+    (its first moment after one step), and the parameters, the EMA and
+    the running statistics after the last."""
+    named = list(state.model.named_parameters())
+    metrics = []
+    for i in range(SETUP_STEPS):
+        metrics.append(step(state, *pool[i], gen)[1])
+        if i == 0:
+            grads = {k: _host(state.optimizer.state[p]['exp_avg'])
+                     / (1.0 - beta1) for k, p in named}
+    return dict(
+        losses=[float(m[0]) for m in metrics],
+        grads=grads,
+        params={k: _host(p) for k, p in named},
+        ema={k: _host(v) for k, v in state.ema_params.items()},
+        stats={k: _host(v)
+               for k, v in state.model.named_buffers() if 'running' in k})
 
 
 def judge(ref, init, pool, prog, cfg, seed, dev, control=None):
@@ -260,7 +269,9 @@ def judge(ref, init, pool, prog, cfg, seed, dev, control=None):
 
 
 def traced(step, state, pool, gen, steps, cfg, tr, window_s, done, n, dev):
-    """``n`` more steps under ``torch.profiler``."""
+    """``n`` more steps under ``torch.profiler``; the operations and
+    ``bounds`` (the backbone file's kernels' least times, as for serving)
+    are of a step over ``tr['batch']`` rows."""
     def call(i):
         step(state, *pool[(steps + i) % len(pool)], gen)
 
@@ -272,11 +283,17 @@ def traced(step, state, pool, gen, steps, cfg, tr, window_s, done, n, dev):
                                             cfg['regressor']['num_classes'])
         flops = yardstick.train_flops(*yardstick.forward_flops(
             reg, torch.empty(tr['batch'], size, size, 3)))
+    itemsize = torch.empty((), dtype=getattr(torch, cfg['dtype'])) \
+        .element_size()
     return dict(kind='train', events=device, units=n,
                 items_per_unit=tr['batch'],
                 busy_s=sum(e - s for s, e in busy_intervals(device)) / 1e6,
                 window_s=traced_s, unit_wall_s=window_s / done,
-                flops_per_unit=flops, breakdown=bd)
+                flops_per_unit=flops,
+                bounds=yardstick.backbone_bounds(
+                    cfg['regressor']['backbone'], tr['batch'], (size, size),
+                    itemsize, True, n),
+                breakdown=bd)
 
 
 def _host(t):

@@ -4,7 +4,10 @@ the card by the benchmark and handed to both the port and the reference.
 Every leaf is drawn by its kind, in a few large calls of a
 ``torch.Generator`` on the card: conv kernels N(0, √(2/fan_in)), dense
 kernels and the heads' ``[9, C, 18]`` kernel N(0, 1/√fan_in), biases and
-batch-norm shifts N(0, 0.1), batch-norm scales U(0.5, 1.5).  Then every
+the shifts of batch, layer and group norms N(0, 0.1), their scales
+U(0.5, 1.5); a model with a ``leaf_std(name, p)`` (a regressor whose
+backbone file defines one) gives the std of its own leaves, such as a
+position-bias table, where it returns one.  Then every
 batch norm's running mean and variance are set to the statistics of its
 input over a calibration batch, in one float32 training-mode forward of
 the reference, the variance plus 1: with drawn statistics alone the random
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 VAR_FLOOR = 1.0
+NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)
 
 
 def _normal_std(name, p):
@@ -33,8 +37,10 @@ def _normal_std(name, p):
 def draw(model, seed, device):
     """Fill ``model``'s parameters (on ``device``) from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    scales = {id(m.weight) for m in model.modules()
-              if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d))}
+    norms = [m for m in model.modules() if isinstance(m, NORMS)]
+    scales = {id(m.weight) for m in norms if m.weight is not None}
+    shifts = {id(m.bias) for m in norms if m.bias is not None}
+    custom = getattr(model, 'leaf_std', None)
     named = list(model.named_parameters())
     normal = [(n, p) for n, p in named if id(p) not in scales]
     uniform = [p for _, p in named if id(p) in scales]
@@ -44,7 +50,10 @@ def draw(model, seed, device):
                    device=device)
     i = 0
     for name, p in normal:
-        p.copy_(z[i:i + p.numel()].view_as(p) * _normal_std(name, p))
+        std = None if custom is None else custom(name, p)
+        if std is None:
+            std = 0.1 if id(p) in shifts else _normal_std(name, p)
+        p.copy_(z[i:i + p.numel()].view_as(p) * std)
         i += p.numel()
     i = 0
     for p in uniform:

@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from reference.models import recording
+from reference.models import backbone_module, recording
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity, at 700 W
 PEAK_BF16_FLOPS = 989e12
@@ -92,3 +92,15 @@ def bound_s(n_bytes, n_ops, peak_ops=PEAK_F32_FLOPS):
     """The least time the card could take: the larger of the bytes over
     the memory bandwidth and the operations over ``peak_ops``."""
     return max(n_bytes / HBM_BYTES_PER_S, n_ops / peak_ops)
+
+
+def backbone_bounds(name, rows, crop, itemsize, train, calls):
+    """``{kernel: [seconds] * calls}``: the least time of each kernel that
+    backbone ``name``'s file counts (its ``bounds``), in each of ``calls``
+    traced calls or steps over ``rows`` crops; ``{}`` where it counts
+    none."""
+    fn = getattr(backbone_module(name), 'bounds', None)
+    if fn is None:
+        return {}
+    return {k: [v] * calls
+            for k, v in fn(rows, tuple(crop), itemsize, train).items()}

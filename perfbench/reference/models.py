@@ -1,7 +1,8 @@
 """The plain float32 reference of both served models and of the regressor's
 training forward: MobileNetV2-SSD-300 (plain or cascade heads),
 MobileNetV3-large (the timm 21k layout) and EfficientNet-lite0 under the
-9-head keypoint regressor.
+9-head keypoint regressor.  Any other regressor backbone is found by name
+in a file of its own beside this one (:func:`backbone_module`).
 
 A frozen copy of the arithmetic of the port's ``models/`` and
 ``detect/ssd.py`` as they stood when the benchmark was written, with the
@@ -11,8 +12,13 @@ additions: :func:`lowered`, which rounds every conv's and dense layer's
 input and weight to float8 (e4m3, one scale a tensor) for the benchmark's
 control of a precision below the configuration's bfloat16, and
 :func:`recording`, which lists their shapes for the operation counts.
+:func:`matmul` is the product of two activations (attention's QKᵀ and
+AV) for a backbone file: rounded and recorded as ``conv`` and ``linear``
+are.
 """
 
+import importlib
+import importlib.util
 import math
 import threading
 from contextlib import contextmanager
@@ -29,8 +35,9 @@ FP8_MAX = 448.0     # the largest finite float8_e4m3fn
 
 @contextmanager
 def lowered(kind):
-    """Inside, conv and dense inputs and weights are rounded to ``kind``
-    (``'fp8'``), the gradient passing straight through the rounding."""
+    """Inside, conv and dense inputs and weights and both operands of
+    :func:`matmul` are rounded to ``kind`` (``'fp8'``), the gradient
+    passing straight through the rounding."""
     if kind not in ('fp8',):
         raise ValueError(f'unknown lower precision {kind!r}')
     _LOWER.kind = kind
@@ -81,6 +88,20 @@ def _note(kind, x, what, out):
     record = getattr(_LOWER, 'record', None)
     if record is not None:
         record.append((kind, tuple(x.shape), what, tuple(out.shape)))
+    return out
+
+
+def matmul(a, b):
+    """``a @ b`` of two tensors of at least two dimensions, both rounded
+    under :func:`lowered`; recorded as ``('matmul', rows + (k,), (k, m),
+    out_shape)``, ``rows`` the product's leading dimensions, so that the
+    operation counts take its ``2·rows·k·m``."""
+    out = _round(a) @ _round(b)
+    k, m = b.shape[-2:]
+    record = getattr(_LOWER, 'record', None)
+    if record is not None:
+        record.append(('matmul', tuple(out.shape[:-1]) + (k,), (k, m),
+                       tuple(out.shape)))
     return out
 
 
@@ -317,6 +338,28 @@ BACKBONES = {'mobilenetv3_large_21k': MobileNetV3Large21k,
              'efficientnet-lite0': EfficientNetLite0}
 
 
+def backbone_module(name):
+    """The module of a regressor backbone that :data:`BACKBONES` does not
+    hold: ``backbone_<name>.py`` beside this file, ``-`` and ``.`` of the
+    name read as ``_``.  It defines ``Backbone`` (``feature_dim``,
+    ``features(x, train)`` → NCHW, ``head(pooled, train)``) and, where it
+    needs them, ``leaf_std(name, p)`` (the std of a leaf of its own that
+    ``harness/weights.py`` should draw otherwise, or None) and
+    ``bounds(rows, crop, itemsize, train)`` (``{kernel: seconds}``, the
+    least time of each kernel it counts in one call or step over ``rows``
+    crops).  None for a name of :data:`BACKBONES`; an unknown name
+    raises."""
+    if name in BACKBONES:
+        return None
+    slug = name.replace('-', '_').replace('.', '_')
+    spec = importlib.util.find_spec(f'{__package__}.backbone_{slug}')
+    if spec is None:
+        raise KeyError(f'unknown backbone {name!r}: the reference knows '
+                       f'{sorted(BACKBONES)} and no file backbone_{slug}.py')
+    return importlib.import_module(spec.name)
+
+
+
 class MultiHeadRegressor(nn.Module):
     """NHWC crops → every class's 9 keypoints (pre-sigmoid ``[B,9,18]``)
     and the class logits; with ``cats`` the ground-truth class's keypoints
@@ -325,13 +368,23 @@ class MultiHeadRegressor(nn.Module):
 
     def __init__(self, backbone, num_classes=9, dropout_rate=0.5):
         super().__init__()
-        self.backbone = BACKBONES[backbone]()
+        mod = backbone_module(backbone)
+        self.backbone = (BACKBONES[backbone] if mod is None
+                         else mod.Backbone)()
+        self._leaf_std = getattr(mod, 'leaf_std', None)
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
         c = self.backbone.feature_dim
         self.head_kernel = nn.Parameter(torch.zeros(9, c, 18))
         self.head_bias = nn.Parameter(torch.zeros(9, 18))
         self.cls_fc = nn.Linear(c, num_classes)
+
+    def leaf_std(self, name, p):
+        """The backbone file's std for leaf ``name`` (of this model's
+        ``named_parameters``), or None for the default rule."""
+        if self._leaf_std is None or not name.startswith('backbone.'):
+            return None
+        return self._leaf_std(name[len('backbone.'):], p)
 
     def forward(self, x, cats=None, train=False, generator=None):
         x = x.float().permute(0, 3, 1, 2)

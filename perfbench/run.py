@@ -12,10 +12,10 @@ the module that runs it, ``perfbench/harness/<kind>.py``) and, with
 ``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
 per-layer ones with the device's busy time and the traced window.
 
-``--control fp8`` puts the float32 reference, every conv's and dense
-layer's input and weight rounded to float8, in the program's place: the
-control, whose runs must come out not correct.  The benchmark's own runs
-do not use it.
+``--control fp8`` puts the float32 reference, every conv's, dense
+layer's and matmul's operands rounded to float8, in the program's place:
+the control, whose runs must come out not correct.  The benchmark's own
+runs do not use it.
 """
 
 import time
@@ -24,6 +24,7 @@ T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import importlib  # noqa: E402
+import importlib.util  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -49,6 +50,18 @@ def load_cell(name, root=ROOT):
     with open(root / HERE.name / 'traffic' / f'{cell["traffic"]}.json') as f:
         traffic = json.load(f)
     return bench, cell, config, traffic
+
+
+def driver(kind):
+    """``run(ctx)`` of traffic kind ``kind``: ``perfbench/harness/<kind>.py``,
+    found by name, so that a new kind is a new file."""
+    if importlib.util.find_spec(f'harness.{kind}') is None:
+        raise SystemExit(f'traffic kind {kind!r} has no driver '
+                         f'{HERE.name}/harness/{kind}.py')
+    fn = getattr(importlib.import_module(f'harness.{kind}'), 'run', None)
+    if not callable(fn):
+        raise SystemExit(f'{HERE.name}/harness/{kind}.py defines no run')
+    return fn
 
 
 def limits_of(config, traffic):
@@ -96,11 +109,11 @@ def run_cell(bench, cell, config, traffic, seed, seconds, trace, control,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from harness import common
-    traffic_kind = importlib.import_module(f'harness.{traffic["kind"]}')
+    run_kind = driver(traffic['kind'])
     ctx = SimpleNamespace(seed=seed, seconds=seconds, trace=bool(trace),
                           control=control, cfg=config, traffic=traffic,
                           device=device, t0=T0, trace_calls=TRACE_CALLS)
-    out = traffic_kind.run(ctx)
+    out = run_kind(ctx)
     return report(bench, cell, out, limits_of(config, traffic), trace,
                   common, device)
 

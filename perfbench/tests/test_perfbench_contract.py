@@ -96,13 +96,24 @@ def test_every_file_is_found_by_name(bench):
     for w in bench['workloads']:
         _, cell, config, traffic = run.load_cell(w['name'])
         assert cell is not None and config['name'] == w['config']
-        assert traffic['kind'] in ('serve', 'train')
+        assert callable(run.driver(traffic['kind']))
         limits = run.limits_of(config, traffic)
         assert limits and all(v >= 0 for v in limits.values())
     for c in bench['configs']:
         assert c['file'].startswith(bench['paths'][0] + '/')
     for m in bench['per_layer']:
         assert callable(common.load_metric(m['name']))
+
+
+def test_a_kind_is_found_by_its_driver_alone():
+    assert callable(run.driver('train_dp'))
+    with pytest.raises(SystemExit, match='no driver'):
+        run.driver('no_such_kind')
+
+
+def test_four_card_cells_are_few(bench):
+    cells = bench['workloads']
+    assert sum(w['chips'] == 4 for w in cells) <= max(1, len(cells) // 4)
 
 
 def test_a_new_mix_is_picked_up_from_its_file_alone(bench, tmp_path):
@@ -126,10 +137,25 @@ def test_a_new_mix_is_picked_up_from_its_file_alone(bench, tmp_path):
     assert traffic == mix and config['name'] == 'el0'
 
 
+def test_the_idle_share_leaves_the_collectives_out():
+    """An all-reduce kernel that spins while the other ranks catch up is not
+    the step's own work."""
+    read = common.load_metric('train_idle_share')
+    trace = dict(kind='train', units=1, unit_wall_s=0.01,
+                 events=[('conv_fprop', 0.0, 4000.0),
+                         ('ncclDevKernel_AllReduce_Sum_f32', 4000.0,
+                          9000.0)])
+    assert read(trace) == pytest.approx(60.0)
+    comm = common.load_metric('dp_comm_ms_per_step')
+    assert comm(trace) == pytest.approx(5.0)
+    assert comm(dict(trace, events=trace['events'][:1])) is None
+
+
 def test_readers_of_another_kind_find_nothing(bench):
     empty = dict(kind='none', events=[])
     for m in bench['per_layer']:
         assert common.load_metric(m['name'])(empty) is None
+    assert common.load_metric('dp_comm_ms_per_step')(empty) is None
 
 
 def test_the_verdict_holds_every_number_to_its_limit():

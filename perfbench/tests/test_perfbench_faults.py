@@ -13,12 +13,47 @@ from harness import train as train_harness
 
 SMALL = {'serve': dict(batch=2, height=72, width=128, pool=2,
                        calibration_frames=2),
-         'train': dict(batch=4, size=64, pool=4, calibration_images=4)}
+         'train': dict(batch=4, size=64, pool=4, calibration_images=4),
+         'train_dp': dict(ranks=4, batch=2, size=64, pool=4,
+                          calibration_images=4, threads=1)}
 SEED = 2 ** 31 + 11
 
 
+# the data-parallel cell: its files are in place, and BENCHMARK.json takes
+# these entries once its rate holds within the bound (PERF.md §7): the
+# cell, the cell beside train.el0.b128 in every metric that lists it, and
+# the process group's metric
+DP4 = {'name': 'train.el0.dp4', 'config': 'el0',
+       'traffic': 'train_dp_b128_224', 'chips': 4,
+       'why': "cell 2's step on 4 cards over NCCL, 128 rows a card of a "
+              "512-row batch: synchronised batch norm, the flat gradient "
+              "all-reduce"}
+DP_COMM = {'name': 'dp_comm_ms_per_step', 'unit': 'ms', 'better': 'lower',
+           'source': 'device_trace', 'layer': 'process group',
+           'moves': 'train_images_per_s', 'workloads': [DP4['name']]}
+
+
+def load(name):
+    """``run.load_cell``, with :data:`DP4`'s entries beside the listed
+    ones."""
+    if name != DP4['name']:
+        return run.load_cell(name)
+    bench, _, config, _ = run.load_cell('train.el0.b128')
+
+    def beside(m):
+        listed = m.get('workloads', [])
+        return (dict(m, workloads=listed + [DP4['name']])
+                if 'train.el0.b128' in listed else m)
+    bench = dict(bench, workloads=bench['workloads'] + [DP4],
+                 end_to_end=[beside(m) for m in bench['end_to_end']],
+                 per_layer=[beside(m) for m in bench['per_layer']]
+                 + [DP_COMM])
+    with open(run.HERE / 'traffic' / f'{DP4["traffic"]}.json') as f:
+        return bench, DP4, config, json.load(f)
+
+
 def drive(capsys, name, control=None, trace=0):
-    bench, cell, config, traffic = run.load_cell(name)
+    bench, cell, config, traffic = load(name)
     traffic = dict(traffic, **SMALL[traffic['kind']])
     torch.manual_seed(0)
     rc = run.run_cell(bench, cell, config, traffic, SEED, 0.2, trace,
@@ -200,19 +235,72 @@ def test_an_altered_update_is_not_correct(capsys, monkeypatch):
     assert drive(capsys, 'train.el0.b128')['correct'] is False
 
 
+def half_batch(step):
+    """The step over the first half of its rows alone."""
+    def faulty(state, imgs, kp, cats, gen):
+        h = imgs.shape[0] // 2
+        return step(state, imgs[:h], kp[:h], cats[:h], gen)
+    return faulty
+
+
 def test_a_step_over_half_the_batch(capsys, monkeypatch):
-    def wrap(step):
-        def faulty(state, imgs, kp, cats, gen):
-            h = imgs.shape[0] // 2
-            return step(state, imgs[:h], kp[:h], cats[:h], gen)
-        return faulty
-    _step_fault(monkeypatch, wrap)
+    _step_fault(monkeypatch, half_batch)
     assert drive(capsys, 'train.el0.b128')['correct'] is False
+
+
+def test_the_sound_data_parallel_path_is_correct(capsys):
+    """Four gloo processes on the CPU: every rank holds the same state
+    after the first three steps, and rank 0's agrees with the reference
+    over the global rows; traced, rank 0's trace reaches the readers."""
+    out = drive(capsys, 'train.el0.dp4', trace=1)
+    assert out['correct'] is True
+    assert out['checks']['rank_param_gap']['value'] == 0.0
+    assert out['device']['count'] == 4 and out['device']['busy_s'] >= 0
+    assert set(out['breakdown']) == {'device_ops', 'idle_gaps'}
+    assert 'train_mfu' in out['metrics']       # no device events on the CPU
+
+
+def plant_no_exchange(rank, ranks):
+    """The exchange between cards left out on the last rank: it takes part
+    in the gradients' all-reduce with a copy and keeps its own gradient
+    (so the collectives still pair up)."""
+    if rank != ranks - 1:
+        return
+    from tpudet3d_torch.parallel import sharding
+    real = sharding.all_reduce_mean
+
+    def faulty(tensors):
+        real([t.clone() for t in tensors])
+        return tensors
+    sharding.all_reduce_mean = faulty
+
+
+def plant_half_batch(rank, ranks):
+    """Every rank steps the first half of its rows alone."""
+    real = train_harness.build_state
+
+    def build(cfg, sd, device):
+        state, step = real(cfg, sd, device)
+        return state, half_batch(step)
+    train_harness.build_state = build
+
+
+@pytest.mark.parametrize('plant, number', [
+    (plant_no_exchange, 'rank_param_gap'),
+    (plant_half_batch, 'grad_gap_median')], ids=['no_exchange', 'half_batch'])
+def test_a_faulty_data_parallel_step_is_not_correct(capsys, monkeypatch,
+                                                    plant, number):
+    """Planted in every rank's process before it builds its state."""
+    from harness import train_dp
+    monkeypatch.setattr(train_dp, 'PLANT', plant)
+    out = drive(capsys, 'train.el0.dp4')
+    assert out['correct'] is False
+    assert out['checks'][number]['value'] > out['checks'][number]['limit']
 
 
 @pytest.mark.parametrize('name, control', [
     ('serve.mnv3l21k.b32', 'fp8'), ('serve.el0.b32', 'fp8'),
-    ('train.el0.b128', 'fp8')])
+    ('train.el0.b128', 'fp8'), ('train.el0.dp4', 'fp8')])
 def test_the_control_is_not_correct(capsys, name, control):
     """The reference in float8, put in the program's place."""
     assert drive(capsys, name, control=control)['correct'] is False
