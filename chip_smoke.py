@@ -182,6 +182,15 @@ Phases, each fatal on failure:
    ``torch.distributed.run`` with one process: an NCCL group of one from
    torchrun's environment, rank 0's log, one snapshot resumed bit for
    bit.
+13. Swin-T (``configs/scene_regressor_swint.py``): K8 window attention
+   against its plain version at the four stage shapes at 256 crops
+   (``[256, s, s, 96·heads]`` bf16, s = 56, 28, 14, 7), unshifted and
+   shifted, within two bf16 ulps and no farther from the float64 function
+   than 1.5× the plain version, timed with a call's 12 launches summed
+   against its bound at 989 TFLOP/s; ``build_engine`` on the config
+   through the eager ``_pipeline_batch`` and the graphed ``infer_batch``,
+   each launching K1–K4 once and K8 12 times (a replay counted by kernel
+   name), the replayed rows bit for bit the eager ones.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -208,6 +217,7 @@ from tpudet3d_torch.tools.k3_bench import det_batch, k3_times
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, non-tensor float32, published
+BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores, published
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores, published
 FRAME = (720, 1280, 3)
 EVAL_FRAME = (1280, 720, 3)    # portrait frames of the evaluation phase
@@ -236,9 +246,9 @@ def time_ms(fn, iters):
     return cycle_ms([fn], iters)
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, peak_ops=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_FLOPS
+    t_ops = n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
         'operations'
 
@@ -1216,12 +1226,13 @@ def drive(wrappers, fn):
     return out, [f.launches for f in wrappers]
 
 
-# the kernels each wrapper of K1-K7 launches, as a device trace names them
+# the kernels each wrapper of K1-K8 launches, as a device trace names them
 KERNEL_NAMES = (('resize_tiled_u8_kernel',), ('crop_band_kernel',),
                 ('decode_nms_kernel',), ('head_epilogue_kernel',),
                 ('box3d_iou_kernel',),
                 ('quantize_rows_kernel', 'quantize_staged_kernel',
-                 'quantize_input_kernel'), ('int8_rescale_kernel',))
+                 'quantize_input_kernel'), ('int8_rescale_kernel',),
+                ('window_attn_kernel',))
 REPLAYS_TRACED = 3           # the replays a drive_replay counts over
 
 
@@ -4629,6 +4640,136 @@ def torchrun_clis(dev, tmp, world=1):
     return out
 
 
+# phase 13: Swin-T's shifted-window attention (K8) at the four stage shapes,
+# and the Swin-T regressor served through the graphed infer_batch
+SWIN_CONFIG = 'configs/scene_regressor_swint.py'
+K8_CROPS = 256                 # the benchmark's call: 32 frames × 8 rows
+# Swin-T's stages at 224² crops: (map side, heads, blocks); heads of 32
+# channels, 7×7 windows, odd blocks shifted by 3 but on the one-window map
+K8_STAGES = ((56, 3, 2), (28, 6, 2), (14, 12, 6), (7, 24, 2))
+K8_WINDOW, K8_SHIFT, K8_F64_CROPS = 7, 3, 16
+# launches of K1-K8 in one Swin-T infer_batch, eager or replayed
+SWIN_LAUNCHES = [1, 1, 1, 1, 0, 0, 0, 12]
+
+
+def k8_work(side, heads, crops):
+    """``(bytes, ops)`` of one K8 launch: each token's q, k, v read and its
+    output written once in bf16, the bias table in float32, and
+    2·(2·49·49·32) operations a window and head."""
+    c = 32 * heads
+    tokens = crops * side * side
+    windows = tokens // K8_WINDOW ** 2
+    n_bytes = tokens * 4 * c * 2 + (2 * K8_WINDOW - 1) ** 2 * heads * 4
+    return n_bytes, windows * heads * 2 * (2 * K8_WINDOW ** 4 * 32)
+
+
+def check_k8(dev, ops):
+    """K8 against its plain version at Swin-T's four stage shapes at
+    :data:`K8_CROPS` crops, unshifted and shifted (the one-window map too,
+    where the model never shifts): within two bf16 ulps of the output's
+    largest magnitude, and on the first crops no farther from the float64
+    function than 1.5× the plain version (the card test's rules), one
+    launch a call; then each shape timed, kernel and plain version, and a
+    Swin-T call's 12 launches summed (shift 3 on the odd blocks of the
+    first three stages)."""
+    attend, plain = ops
+    out = {'shapes': {}, 'err': 0.0, 'rel_err': 0.0}
+    for side, heads, _ in K8_STAGES:
+        for shift in (0, K8_SHIFT):
+            g = torch.Generator(device=dev).manual_seed(side + shift)
+            qkv = (2 * torch.randn((K8_CROPS, side, side, 96 * heads),
+                                   generator=g, device=dev)
+                   ).to(torch.bfloat16)
+            table = torch.randn(((2 * K8_WINDOW - 1) ** 2, heads),
+                                generator=g, device=dev)
+            args = (qkv, table, heads, K8_WINDOW, shift)
+            attend.launches = 0
+            with torch.no_grad():
+                got = attend(*args)
+            ref = plain(*args)
+            if dev.type == 'cuda':
+                torch.cuda.synchronize()
+                expect(attend.launches == 1, f'K8 launches {attend.launches}')
+            scale = ref.float().abs().max().item()
+            gap = max_err(got, ref)
+            name = f'{side}x{side}x{heads} shift {shift}'
+            expect(gap <= 2 * 2 ** -7 * scale,
+                   f'K8 {name}: |kernel - plain| {gap:.3g} over two bf16 '
+                   f'ulps of {scale:.3g}')
+            n = K8_F64_CROPS
+            exact = plain(qkv[:n].double(), table.double(), heads,
+                          K8_WINDOW, shift, shift > 0)
+            k8_err = (got[:n].double() - exact).abs().max().item()
+            plain_err = (ref[:n].double() - exact).abs().max().item()
+            expect(k8_err <= 1.5 * plain_err + 1e-6,
+                   f'K8 {name}: {k8_err:.3g} from float64 against the '
+                   f'plain version\'s {plain_err:.3g}')
+            del exact, ref
+            with torch.no_grad():
+                ms = time_ms(lambda: attend(*args), 50)
+                plain_ms = time_ms(lambda: plain(*args), 3)
+            out['shapes'][name] = dict(ms=ms, plain_ms=plain_ms, err=gap,
+                                       scale=scale, f64_err=k8_err,
+                                       plain_f64_err=plain_err,
+                                       bound=bound_ms(*k8_work(
+                                           side, heads, K8_CROPS),
+                                           peak_ops=BF16_FLOPS))
+            out['err'] = max(out['err'], gap)
+            out['rel_err'] = max(out['rel_err'], gap / scale)
+            print(f'K8 {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, max '
+                  f'|kernel - plain| {gap:.3g} of {scale:.3g}, from float64 '
+                  f'{k8_err:.3g} (plain {plain_err:.3g})')
+    n_bytes = n_ops = 0
+    for key in ('ms', 'plain_ms'):
+        out[key] = 0.0
+    for side, heads, blocks in K8_STAGES:
+        shifted = blocks // 2 if side > K8_WINDOW else 0
+        b, o = k8_work(side, heads, K8_CROPS)
+        n_bytes, n_ops = n_bytes + blocks * b, n_ops + blocks * o
+        for key in ('ms', 'plain_ms'):
+            sh = out['shapes']
+            out[key] += ((blocks - shifted)
+                         * sh[f'{side}x{side}x{heads} shift 0'][key]
+                         + shifted * sh[f'{side}x{side}x{heads} shift '
+                                        f'{K8_SHIFT}'][key])
+    out['bound'] = bound_ms(n_bytes, n_ops, peak_ops=BF16_FLOPS)
+    out['bytes'], out['ops'] = n_bytes, n_ops
+    return out
+
+
+def swin_path(dev, wrappers, frames_np):
+    """Phase 13b: ``build_engine`` on the Swin-T config through the eager
+    ``_pipeline_batch`` (launches counted by the wrappers) and the graphed
+    ``infer_batch`` (a replay's launches counted by kernel name,
+    :func:`drive_replay`), each exactly :data:`SWIN_LAUNCHES`; the
+    replayed rows bit for bit the eager ones under cuDNN's deterministic
+    algorithms."""
+    from tpudet3d_torch.infer import build_engine
+    h, w = FRAME[:2]
+    engine = build_engine(SWIN_CONFIG, det_conf=0.0, device=dev)
+    out = {}
+    with cudnn_deterministic():
+        eager, n_eager = drive(wrappers, lambda: engine._pipeline_batch(
+            engine._upload(frames_np), h, w))
+        res, n = drive_replay(wrappers, lambda: engine.infer_batch(
+            frames_np))
+        if dev.type == 'cuda':
+            (graph,) = engine._graphs.values()
+            expect(torch.equal(graph.static_out, eager),
+                   'Swin-T: the replayed rows differ from the eager ones')
+            out['graph_stats'] = dict(engine.graph_stats)
+    print(f'phase 13 Swin-T infer_batch({len(frames_np)}): launches K1-K8 '
+          f'eager {n_eager}, replayed {n}')
+    for what, got in (('eager', n_eager), ('replayed', n)):
+        expect(got == SWIN_LAUNCHES, f'Swin-T {what} launches {got}, '
+               f'expected {SWIN_LAUNCHES}')
+    expect(len(res) == len(frames_np), 'Swin-T infer_batch result count')
+    check_results(res, h, w)
+    out.update(launches_eager=n_eager, launches=n,
+               detections=sum(len(r['scores']) for r in res))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default='', help='also write the numbers here')
@@ -4832,6 +4973,15 @@ def run(dev, out_path, iters=20):
     with tempfile.TemporaryDirectory() as tmp:
         golden_res['torchrun'] = torchrun_clis(dev, tmp)
     done('12 golden record and torchrun')
+
+    # 13. Swin-T's window attention (K8) at its four stage shapes, and the
+    # Swin-T regressor served through the graphed infer_batch
+    from tpudet3d_torch.ops.attention import (window_attention,
+                                              window_attention_plain)
+    k8 = check_k8(dev, (window_attention, window_attention_plain))
+    swin = swin_path(dev, wrappers + (iou,) + int8_wrappers
+                     + (window_attention,), frames_np)
+    done('13 window attention and Swin-T')
     print('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
                                            for k, v in phase_s.items()))
 
@@ -4915,6 +5065,16 @@ def run(dev, out_path, iters=20):
                  library_device_ms=t['library_device_ms'],
                  el0=int8['el0']['times'][key])
     kernels[5].update(routes=int8['mnv3']['times']['K6']['routes'])
+    k8_row = {
+        'name': 'K8 window_attention', 'route': 'cuda',
+        'source': 'tpudet3d_torch/kernels/csrc/window_attn.cu',
+        'replaces': None, 'launches': swin['launches'][7],
+        'launches_eager': swin['launches_eager'][7],
+        'max_abs_err': k8['err'], 'max_rel_err': k8['rel_err'],
+        'ms': k8['ms'], 'plain_ms': k8['plain_ms'],
+        'bound_ms': k8['bound'][0], 'bound_by': k8['bound'][1],
+        'library_ms': None, 'bytes': k8['bytes'], 'ops': k8['ops'],
+        'shapes': k8['shapes']}
     for k in kernels:
         lib = ('none' if k['library_ms'] is None
                else f"{k['library_ms']:.4f} ms")
@@ -4931,6 +5091,15 @@ def run(dev, out_path, iters=20):
               f"{k['launches_parallel']} on phase 11, "
               f"{k['launches_golden']} on phase 12), max "
               f'|kernel - plain| {k["max_abs_err"]:.3g}')
+    print(f"{k8_row['name']}: {k8_row['ms']:.4f} ms a Swin-T call of "
+          f"{K8_CROPS} crops (12 launches), plain {k8_row['plain_ms']:.4f} "
+          f"ms, library none, bound {k8_row['bound_ms']:.4f} ms "
+          f"({k8_row['bound_by']}), {k8_row['launches']} launches a replayed "
+          f"Swin-T infer_batch({len(frames_np)}) "
+          f"({k8_row['launches_eager']} eager), max |kernel - plain| "
+          f"{k8_row['max_abs_err']:.3g} ({k8_row['max_rel_err']:.3g} of the "
+          f"output's largest)")
+    kernels.append(k8_row)
     print(gpu)
     print(json.dumps({'kernels': kernels}))
     if out_path:
@@ -4941,6 +5110,7 @@ def run(dev, out_path, iters=20):
                        'int8': int8, 'training': training,
                        'loop': loop, 'detector_training': det,
                        'parallel': parallel, 'golden': golden_res,
+                       'swin': swin,
                        'phase_s': phase_s,
                        'torch': torch.__version__,
                        'cuda': torch.version.cuda}, f, indent=1)

@@ -396,8 +396,11 @@ def test_replaced_regressor_recaptures_on_card(card, deterministic):
 def test_replayed_kernels_in_a_device_trace_on_card(card):
     """Under a profile of the card's activity alone a replay shows each
     kernel of the path under its own name, the eager path's kernels and
-    fills one for one, K1 and K2 among them."""
-    from torch.profiler import ProfilerActivity, profile
+    fills one for one, K1 and K2 among them.  The tracer can lose a
+    session's first events while it starts, so each session traces a
+    warm-up call and throws it away (the profiler's schedule), as
+    ``chip_smoke.py`` ``traced_launches`` does."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     engine = _card_engine('mnv3', card)
     frames = _frames(8, 720, 1280, seed=0)
     up = engine._upload(frames)
@@ -409,9 +412,13 @@ def test_replayed_kernels_in_a_device_trace_on_card(card):
                            [engine._pipeline_batch(up, h, w)])),
                        ('replay', lambda: engine.infer_batch(frames))):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                call()
+                torch.cuda.synchronize()
+                prof.step()
         names[what] = sorted(
             e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA

@@ -31,6 +31,8 @@ CONFIGS = sorted(glob.glob(osp.join(osp.dirname(osp.dirname(
     osp.abspath(__file__))), 'configs', 'scene_regressor*.py')))
 REGRESSORS = ['mobilenetv3_large', 'mobilenetv3_small',
               'mobilenetv3_large_21k']
+# backbones of the port alone: class name and feature width
+PORT_ONLY = {'swin_tiny_patch4_window7_224': ('SwinTransformer', 768)}
 # EfficientNet-lite at an even and (lite0) an odd input size, where the
 # stride-2 5x5 depthwise convs' symmetric padding shows
 LITE_CASES = [('efficientnet-lite0', 64), ('efficientnet-lite0', 65),
@@ -194,13 +196,21 @@ def test_build_engine_accepts_every_regressor_config(path, tmp_path,
                                                      monkeypatch):
     """Every regressor config builds its engine (random weights: run where
     the configs' output directories do not exist) with the config's
-    backbone and crop size, as the JAX package's builder does."""
+    backbone and crop size, as the JAX package's builder does; a backbone
+    of the port's own (Swin-T), which the JAX package lacks, as the
+    port's builder names it."""
     monkeypatch.chdir(tmp_path)
     engine = build_engine(path, device='cpu')
     cfg = jax_read_py_config(path)
-    jax_backbone = jax_build_model(cfg).backbone
-    assert type(engine.reg_model.backbone).__name__ == \
-        type(jax_backbone).__name__
-    assert engine.reg_model.backbone.feature_dim == 1280
+    if cfg.model.name in PORT_ONLY:
+        assert type(engine.reg_model.backbone).__name__ == \
+            PORT_ONLY[cfg.model.name][0]
+        assert engine.reg_model.backbone.feature_dim == \
+            PORT_ONLY[cfg.model.name][1]
+    else:
+        jax_backbone = jax_build_model(cfg).backbone
+        assert type(engine.reg_model.backbone).__name__ == \
+            type(jax_backbone).__name__
+        assert engine.reg_model.backbone.feature_dim == 1280
     assert engine.cfg.crop_size == tuple(cfg.data.resize)
     assert engine.reg_model.dtype == torch.bfloat16

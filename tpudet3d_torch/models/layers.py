@@ -28,7 +28,7 @@ from ..parallel import sharding
 
 __all__ = ['make_divisible', 'hard_sigmoid', 'hard_swish',
            'global_pool', 'linear', 'model_input', 'uncast', 'conv',
-           'batch_norm', 'ConvBN',
+           'batch_norm', 'layer_norm', 'drop_path', 'ConvBN',
            'SqueezeExcite', 'InvertedResidual', 'init_weights']
 
 
@@ -134,6 +134,35 @@ def batch_norm(x, bn, train=False):
         bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
     return out
+
+
+def layer_norm(x, ln):
+    """``nn.LayerNorm`` over the last axis of ``x`` in the dtype of ``x``:
+    the scale and shift cast to it at the point of use (the card's kernel
+    takes no float32 parameters beside bfloat16 input), the statistics
+    and the affine computed in float32 inside the kernel for a bfloat16
+    ``x``, the output rounded once."""
+    return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
+                        ln.bias.to(x.dtype), ln.eps)
+
+
+def drop_path(x, rate, generator):
+    """Stochastic depth (Huang et al., arXiv:1603.09382): each row of
+    ``x`` (a sample's residual branch) kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, else zeroed.  As
+    :func:`~tpudet3d_torch.models.wrapper.dropout`, one uniform draw a row
+    of the global batch from ``generator`` on its own device, the row kept
+    below ``1 - rate``; ``rate`` 0 draws nothing."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('drop path at a rate above 0 needs a generator')
+    keep = 1.0 - rate
+    u = sharding.local_rows(torch.rand((x.shape[0] * sharding.world(),),
+                                       generator=generator,
+                                       device=generator.device))
+    kept = (u.to(x.device) < keep).view(-1, *([1] * (x.dim() - 1)))
+    return torch.where(kept, x / keep, 0.0)
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -276,7 +305,9 @@ def _lecun_normal_(tensor, fan_in, generator):
 @torch.no_grad()
 def init_weights(module, generator):
     """Seeded random init with the JAX package's initialisers: lecun-normal
-    kernels, zero biases, identity batch norm."""
+    kernels, zero biases, identity batch and layer norms; a module with an
+    ``init_own(generator)`` (the Swin attention's relative-position table)
+    draws its own leaves there, in module order."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
@@ -284,7 +315,10 @@ def init_weights(module, generator):
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, generator)
-            m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        elif hasattr(m, 'init_own'):
+            m.init_own(generator)
     return module

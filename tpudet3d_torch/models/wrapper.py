@@ -12,8 +12,9 @@ serving engine finishes them with kernel K4 (``infer/epilogue.py``).
 ``forward(x, cats=cats)`` is the JAX module's training and evaluation
 branch: the head of each sample's ground-truth class, ``[B, 9, 2]`` after
 the sigmoid, in float32, plus the logits.  ``train=True`` (keyword-only)
-adds the training batch norm (``layers.batch_norm``) and the classifier's
-dropout, whose mask is drawn from the caller's ``generator``.
+adds the training batch norm (``layers.batch_norm``), a Swin backbone's
+stochastic depth and the classifier's dropout, whose masks are drawn from
+the caller's ``generator``.
 """
 
 import math
@@ -80,7 +81,12 @@ class MultiHeadRegressor(nn.Module):
     def forward(self, x, pre_activation=False, *, cats=None, train=False,
                 generator=None):
         x = model_input(x, self.dtype)
-        feats = self.backbone.features(x, train)
+        # a backbone with stochastic depth draws its masks from the
+        # generator, before the classifier's dropout; the others'
+        # features(x, train) take no generator
+        draws = getattr(self.backbone, 'drop_path_rate', 0.0)
+        feats = self.backbone.features(
+            x, train, **({'generator': generator} if draws else {}))
         pooled = self.backbone.head(global_pool(feats, self.pooling_mode),
                                     train)
         pooled = pooled.to(self.head_kernel.dtype)   # the heads: float32
