@@ -25,10 +25,10 @@ int8 scales included, the versions of the weights served int8, and
 cuDNN's and cuBLAS's algorithm switches) runs the path eagerly on a side
 stream, which is its answer and lets the kernels, cuDNN and the int8
 weight cache set up outside the capture, then captures it into a graph
-with a static input and output; every later call of the key copies its
-pinned frames into the static input and replays, one graph launch in
-place of ~800 launches from Python.  The kernels in the graph are the
-same hand-written K1–K4 (and K6/K7) launched by the same C entries on the
+with a static input and output; every later call of the key uploads its
+frames into the static input and replays, one graph launch in place of
+~800 launches from Python.  The kernels in the graph are the same
+hand-written K1–K4 (and K6/K7) launched by the same C entries on the
 capturing stream; a replay calls no kernel wrapper, so the wrappers'
 ``launches`` count the eager path's launches (a capture's warm-up and
 capture both) and a device trace counts a replay's.  At most
@@ -36,6 +36,13 @@ capture both) and a device trace counts a replay's.  At most
 engine, ``shard(...)``, ``__call__`` and ``run_async`` stay eager.
 ``graph_stats`` counts the captures, replays and eager calls of
 ``infer_batch``.
+
+Every upload, graphed or eager, is staged (``infer/upload.py``): the
+frames go through the device's one staging buffer a chunk of whole frames
+at a time, each chunk's copy enqueued as soon as the host has staged it,
+and the replay after the last chunk's.  ``upload_stats`` counts the
+uploads, their chunks and bytes, and the uploads that waited for the
+buffer.
 
 ``shard(devices)`` serves ``infer_batch`` over several devices, as the
 JAX engine's ``shard(mesh)`` does over a mesh: each listed device holds a
@@ -70,6 +77,7 @@ from ..ops.image import crop_and_resize, resize_bilinear
 from ..utils.profiling import annotate
 from .epilogue import head_epilogue, refine_boxes, tta_flip_average
 from .quant import int8_versions, int8_weights, intercepting
+from .upload import canonical, upload, upload_counts
 
 __all__ = ['TwoStageEngine', 'EngineConfig', 'refine_boxes',
            'tta_flip_average', 'upload', 'MAX_GRAPHS', 'REG_MEAN', 'REG_STD',
@@ -129,20 +137,6 @@ class EngineConfig:
     host_downscale: int = 1
 
 
-def _host_frames(frames, device):
-    """Host uint8 frames as a tensor, in pinned memory for a card."""
-    t = torch.as_tensor(np.ascontiguousarray(frames))
-    return t.pin_memory() if device.type == 'cuda' else t
-
-
-def upload(frames, device):
-    """Host uint8 frames → a tensor on ``device``, through pinned memory
-    and without waiting for the copy on the card; the span
-    ``tpudet3d_torch.serve.upload``."""
-    with annotate('tpudet3d_torch.serve.upload'):
-        return _host_frames(frames, device).to(device, non_blocking=True)
-
-
 def warm_up(fn, device):
     """``fn()`` on a side stream of the card ``device``, after the work
     already queued on its current stream, which then waits for it."""
@@ -184,14 +178,6 @@ def _by_value(v):
     return tuple(v) if isinstance(v, list) else v
 
 
-def _canonical(device):
-    """``device`` with its index: ``cuda`` is the current card."""
-    device = torch.device(device)
-    if device.type == 'cuda' and device.index is None:
-        return torch.device('cuda', torch.cuda.current_device())
-    return device
-
-
 def _unpack(rows, scale=1.0):
     return {
         'boxes': rows[:, 0:4] * scale,
@@ -221,6 +207,7 @@ class TwoStageEngine:
         self._pending = []   # FIFO of in-flight results
         self._consts = {}
         self.graph_stats = {'captures': 0, 'replays': 0, 'eager': 0}
+        self.upload_stats = upload_counts()
 
     # a graph reads what these held at its capture: assigning one drops
     # the graphs (and the models' replicas)
@@ -366,17 +353,17 @@ class TwoStageEngine:
                                    self.cfg.refine_margin_px)
 
     def _upload(self, frames):
-        return upload(frames, self.device)
+        return upload(frames, self.device, stats=self.upload_stats)
 
     # --- multi-device serving ----------------------------------------------
     def shard(self, devices):
         """Serve every ``infer_batch`` call over ``devices`` (e.g.
         ``['cuda:0', 'cuda:1']``): one replica of the detector and the
         regressor on each, the frames split into equal slices in order."""
-        devices = [_canonical(d) for d in devices]
+        devices = [canonical(d) for d in devices]
         if not devices:
             raise ValueError('shard needs at least one device')
-        own = _canonical(self.device)
+        own = canonical(self.device)
         replicas = []
         for dev in devices:
             if dev.type == 'cuda' and not torch.cuda.is_available():
@@ -461,29 +448,25 @@ class TwoStageEngine:
     def _graph_batch(self, frames, h, w):
         """frames ``[N,H,W,3]`` uint8 on the host → packed ``[N, max_det,
         26]`` on the card, by the key's graph (captured on its first
-        call); the spans ``serve.upload``, then ``serve.replay`` or
+        call); the spans ``serve.upload`` (the staged copies into the
+        static input), then ``serve.replay`` (``graph.replay()``) or
         ``serve.capture``."""
         key = self._graph_key(frames, h, w)
-        with annotate('tpudet3d_torch.serve.upload'):
-            host = _host_frames(frames, self.device)
         g = self._graphs.get(key)
         if g is None:
-            return self._capture(key, host, h, w)
+            return self._capture(key, self._upload(frames), h, w)
+        upload(frames, self.device, out=g.static_in, stats=self.upload_stats)
         with annotate('tpudet3d_torch.serve.replay'):
-            g.static_in.copy_(host, non_blocking=True)
             g.graph.replay()
         self.graph_stats['replays'] += 1
         return g.static_out
 
-    def _capture(self, key, host, h, w):
+    def _capture(self, key, static_in, h, w):
         """The first call of ``key``: the path run eagerly on a side stream
-        (this call's answer), then captured; the span ``serve.capture``."""
+        (this call's answer), then captured reading ``static_in``, the
+        uploaded frames; the span ``serve.capture``."""
         cfg = self.cfg
         with annotate('tpudet3d_torch.serve.capture'):
-            static_in = torch.empty(host.shape, dtype=host.dtype,
-                                    device=self.device)
-            static_in.copy_(host, non_blocking=True)
-
             def path():
                 return self._pipeline_core(static_in, h, w,
                                            cfg.crop_margin_px,

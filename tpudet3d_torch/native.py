@@ -4,7 +4,9 @@ matrix, from the repository's ``native/tpudet3d_native.cpp``.
 
 The library is built with ``g++`` on first use into the port's own build
 directory (``tpudet3d_torch/kernels/_build/``, keyed by a hash of the
-source), never over the JAX package's ``native/*.so``.  On a host without a
+source, the flags and the machine), never over the JAX package's
+``native/*.so``; :func:`build_library` builds the port's other host C++
+(``kernels/csrc/host_stage.cpp``) the same way.  On a host without a
 compiler both functions take their scipy / numpy route;
 :func:`native_available` says which route runs.
 """
@@ -13,39 +15,54 @@ import ctypes
 import hashlib
 import os
 import os.path as osp
+import platform
 import subprocess
 import tempfile
 
 import numpy as np
 
-__all__ = ['linear_assignment', 'giou_cost_matrix', 'native_available']
+__all__ = ['linear_assignment', 'giou_cost_matrix', 'native_available',
+           'build_library']
 
 _SRC = osp.abspath(osp.join(osp.dirname(__file__), '..', 'native',
                             'tpudet3d_native.cpp'))
 _BUILD = osp.join(osp.dirname(osp.abspath(__file__)), 'kernels', '_build')
 
+_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
+
 _lib = None
 
 
-def _lib_path():
-    with open(_SRC, 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return osp.join(_BUILD, f'native-{digest}', 'libtpudet3d_native.so')
+def _lib_path(src=_SRC, name='native'):
+    with open(src, 'rb') as f:
+        key = f.read() + ' '.join(_FLAGS + [platform.machine()]).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
+    return osp.join(_BUILD, f'{name}-{digest}', f'lib{name}.so')
 
 
-def _build(path):
+def _build(src, path):
     """Compile into a temporary name and rename, so that processes building
     at once never load a half-written library."""
     os.makedirs(osp.dirname(path), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=osp.dirname(path))
     os.close(fd)
     try:
-        subprocess.run(['g++', '-O3', '-shared', '-fPIC', '-std=c++17', '-o',
-                        tmp, _SRC], check=True, capture_output=True)
+        subprocess.run(['g++', *_FLAGS, '-o', tmp, src], check=True,
+                       capture_output=True)
         os.replace(tmp, path)
     finally:
         if osp.exists(tmp):
             os.unlink(tmp)
+
+
+def build_library(src, name):
+    """The C++ source ``src`` as a ``ctypes.CDLL``, built with ``g++`` on
+    first use into ``kernels/_build/<name>-<hash>/``; raises where it
+    cannot be built or loaded."""
+    path = _lib_path(src, name)
+    if not osp.exists(path):
+        _build(src, path)
+    return ctypes.CDLL(path)
 
 
 def _load():
@@ -53,10 +70,7 @@ def _load():
     if _lib is not None:
         return _lib
     try:
-        path = _lib_path()
-        if not osp.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
+        lib = build_library(_SRC, 'native')
         lib.linear_assignment.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int)]
