@@ -10,14 +10,14 @@ Phases, each fatal on failure:
    ``K1_CASES``, K2 crop on every case of ``K2_CASES`` with TTA off and
    on, K3 decode+NMS at A=2044, C=9 on every case of ``K3_CASES`` (K up
    to 2044; detector validation's and self-labelling's shapes), K4 head
-   epilogue on 128 crops with TTA off and on in refine and pack mode with bf16 logits that carry exact ties, and at 1, 127,
-   129 and 128 crops also on logits with NaNs and ties across its warp
-   reduction, K5 oriented-box IoU at P=1, 8, 128 and 129 on random boxes
-   and on exact cases, and against scipy on 32 pairs) and time kernel, plain version and, where one exists, the
-   PyTorch library call (K1 and K2 also with a cold L2 and at N=1, K2 with
-   the mirror, K3 in three settings, at N=1 and on the device), and the
-   launch floor (the device time of an add on one float) beside K4 and
-   K5.
+   epilogue on the crop counts of ``K4_CASES`` with TTA off and on in
+   refine and pack mode, on bf16 logits that carry exact ties and on
+   logits with NaNs and ties across its warp reduction, K5 oriented-box
+   IoU at P=1, 8, 128 and 129 on random boxes and on exact cases, and
+   against scipy on 32 pairs).  The cases, inputs and tolerances are
+   ``tpudet3d_torch/tools/cases.py``'s, which the card tests and the
+   kernel tools share; ``tools/k1_bench.py`` to ``k6_bench.py`` time the
+   kernels.
 3. Drive the serving path at full width (MNv2-SSD-300 w1.0 + MNv3-large-21k,
    bf16, 224² crops, max_detections 8, random weights from seed 0) through
    ``infer_batch`` (16 frames), ``__call__`` and ``run_async`` /
@@ -25,8 +25,8 @@ Phases, each fatal on failure:
    the path's own intermediates against the plain versions.  Then an
    engine with max_detections 128 (K3 at K=512) through ``infer_batch``,
    checked the same way.
-4. Time server frames/s at batches 16 and 32 (device-resident input,
-   median of 3 loops) and the blocked single-frame latency.
+4. (None: the serving path's frames/s and latency are the benchmark's
+   cells ``serve.mnv3l21k.b32`` and ``serve.el0.b32``, ``perfbench/``.)
 5. Drive the evaluation path at full width: ``objectron_eval``'s
    ``evaluate_category`` over 2 categories × 24 synthetic portrait
    1280×720 examples at batch 8, with the CLI's defaults at ``det_tresh``
@@ -43,15 +43,15 @@ Phases, each fatal on failure:
    (serves the EMA) through ``infer_batch`` (16 frames), checked as in
    phase 3, with rows equal bit for bit to an engine of the same modules
    in memory; ``configs/scene_regressor_el0_r288.py`` (288² crops)
-   through ``infer_batch``; el0 serving frames/s and latency as in phase
-   4; ``tools/demo.py``'s ``run`` with the tracker over 32 720p frames of
-   moving boxes (tracks kept, each result equal to ``infer_batch`` of its
-   frame, frames/s, the assignment route); the ``Detector`` wrapper over
-   4 frames (K1 and K3 against their plain versions).  Each of these runs
-   counts every kernel's launches (K5–K7 too; a graphed ``infer_batch``'s
-   replay by kernel name from a device trace, ``drive_replay``) and must
-   give exactly the path's own: one K1 and K3 a batch or frame, one K2
-   and K4 a regress pass, no K5, K6 or K7.
+   through ``infer_batch``; ``tools/demo.py``'s ``run`` with the tracker
+   over 32 720p frames of moving boxes (tracks kept, each result equal to
+   ``infer_batch`` of its frame, frames/s, the assignment route); the
+   ``Detector`` wrapper over 4 frames (K1 and K3 against their plain
+   versions).  Each of these runs counts every kernel's launches (K5–K7
+   too; a graphed ``infer_batch``'s replay by kernel name from a device
+   trace, ``drive_replay``) and must give exactly the path's own: one K1
+   and K3 a batch or frame, one K2 and K4 a regress pass, no K5, K6 or
+   K7.
 7. Serve int8: K6 and K7 against their plain versions bit for bit on
    every case of ``K6_CASES`` and ``K7_CASES`` (bf16 and f32, the stems'
    k×k, padded depths, M = 17, 49 and 128·49; K6 in channels-last and
@@ -64,12 +64,12 @@ Phases, each fatal on failure:
    bit to the eager path's on the uploaded frames and those to its rows
    through the plain K6 and K7 (cuDNN's deterministic algorithms), their
    drift
-   from bf16, K6, ``_int_mm`` and K7 timed over the convs of one eager
-   call (K6's route of every
-   conv, none ``strided``, and its time split by route), launches and
-   device time per call and frames/s and latency at batch 16, bf16 and
-   int8 in turns; el0 exported from its snapshot by ``tools/export.py``,
-   reloaded and held against the eager module.
+   from bf16, K6 and K7 against their plain versions and K7 and
+   ``_int_mm`` timed over the convs of one eager call (K6's route of
+   every conv, none ``strided``; K6's times are ``tools/k6_bench.py``'s),
+   launches and device time per call and frames/s and latency at batch
+   16, bf16 and int8 in turns; el0 exported from its snapshot by
+   ``tools/export.py``, reloaded and held against the eager module.
 8. Train the regressor at full width from seeded random weights
    (``tpudet3d_torch.train``): the card's float32 step against the CPU's
    first (MNv3-large-21k, batch 8 at 224², 2 steps, the same weights,
@@ -192,8 +192,9 @@ Phases, each fatal on failure:
    each launching K1–K4 once and K8 12 times (a replay counted by kernel
    name), the replayed rows bit for bit the eager ones.
 
-Prints the card's name and power limit, a JSON line of per-kernel numbers,
-and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
+Prints the card's name and power limit, a JSON line of each kernel's
+largest error and launches on every path (and K7's and K8's times), and
+as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is unavailable or any phase fails.
 """
 
@@ -209,17 +210,23 @@ import time
 import numpy as np
 import torch
 
-from tpudet3d_torch.tools.k1_bench import launch_floor_ms
-from tpudet3d_torch.tools.k2_bench import engine_like_boxes
-from tpudet3d_torch.tools.k3_bench import BASE as K3_BASE
-from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
-from tpudet3d_torch.tools.k3_bench import det_batch, k3_times
+from tpudet3d_torch.parallel.sharding import (free_port, group_config,
+                                              spawn_group)
+from tpudet3d_torch.tools.cases import (
+    EL0_CONFIG, FRAME, HBM_BYTES_PER_S, K1_CASES, K1_TOLS, K2_CASES, K2_TOLS,
+    K3_CASES, K4_CASES, K4_REFINE, K6_CASES, K7_CASES, box_kps, compare_dets,
+    compare_k4, cycle_ms, k1_frames, k2_case, k3_case, k4_inputs,
+    k5_exact_cases, k5_fuzz_pairs, k6_input, k6_plan, k6_route, k7_input,
+    max_err, max_leaf_err, moving_frames, plain_quant,
+    projected_box_keypoints, recording_int8_convs, rotation, update_err,
+    write_snapshots)
+from tpudet3d_torch.utils import golden
+from tpudet3d_torch.utils.profiling import (KERNEL_NAMES, device_events, drive,
+                                            drive_replay, traced_launches)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, non-tensor float32, published
 BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores, published
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores, published
-FRAME = (720, 1280, 3)
 EVAL_FRAME = (1280, 720, 3)    # portrait frames of the evaluation phase
 EVAL_EXAMPLES = 24             # per category
 EVAL_CLASSES = ('bike', 'book')
@@ -228,7 +235,6 @@ EVAL_CLASSES = ('bike', 'book')
 EVAL_SETTINGS = (('default', ['--det_tresh', '0']),
                  ('recall', ['--preset', 'recall']),
                  ('int8', ['--det_tresh', '0', '--int8']))
-K4_REFINE = (1280, 720, 10.0, 0.2)     # (w, h, margin_px, edge_grow)
 # float32 EPnP lift of exact box projections against the float64 lift: the
 # CPU parity tests find ~1e-4 (tests/test_torch_port_box3d.py)
 LIFT_TOL = 1e-3
@@ -242,19 +248,14 @@ def expect(cond, msg):
 def time_ms(fn, iters):
     """Mean device time of ``fn`` over back-to-back calls (CUDA events,
     after one warm-up call; the L2 cache is not flushed)."""
-    from tpudet3d_torch.tools.k1_bench import cycle_ms
     return cycle_ms([fn], iters)
 
 
-def bound_ms(n_bytes, n_ops, peak_ops=FP32_FLOPS):
+def bound_ms(n_bytes, n_ops, peak_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
         'operations'
-
-
-def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
 
 
 def gpu_line():
@@ -264,30 +265,10 @@ def gpu_line():
     return res.stdout.strip().splitlines()[0]
 
 
-# K1's shapes on the port's paths, resized to 300²: (name, (H, W), batch,
-# frames dropped from the front).  720p serving, 1280×720 portrait
-# evaluation, host_downscale 2 and 3, a batch slice frames[1:] whose base
-# and rows are not 16-byte aligned, and an upscale.
-K1_CASES = (('720p', (720, 1280), 2, 0), ('portrait', (1280, 720), 2, 0),
-            ('360p', (360, 640), 2, 0), ('240p', (240, 426), 2, 0),
-            ('slice', (239, 425), 3, 1), ('upscale', (100, 150), 2, 0))
-K1_TOLS = ((torch.bfloat16, 2 ** -8), (torch.float32, 1e-5))
-
-
-def k1_frames(case, dev, seed=0):
-    """The uint8 frames of a K1_CASES entry on ``dev``, sliced there."""
-    _, hw, n, skip = next(c for c in K1_CASES if c[0] == case)
-    rng = np.random.RandomState(seed)
-    frames = rng.randint(0, 256, (n, *hw, 3)).astype(np.uint8)
-    return torch.from_numpy(frames).to(dev)[skip:]
-
-
 def check_k1(dev, frames, ops):
     """K1 against its plain version at N=1 and 16 of 720p and on every
-    K1_CASES shape; times at batch 16 of 720p → 300² bf16, warm and with a
-    cold L2 (k1_bench.k1_times), and F.interpolate's."""
-    from tpudet3d_torch.tools.k1_bench import k1_times, library_times
-    resize_bilinear, resize_bilinear_plain, resize_weights = ops
+    K1_CASES shape; returns the largest error."""
+    resize_bilinear, resize_bilinear_plain = ops
     err = 0.0
     cases = [(f'720p N={n}', frames[:n]) for n in (1, 16)] + [
         (c[0], k1_frames(c[0], dev)) for c in K1_CASES]
@@ -300,116 +281,12 @@ def check_k1(dev, frames, ops):
                   f'plain| = {e:.3g} (tol {tol:.3g})')
             expect(e <= tol, f'K1 {name} {dtype} disagrees: {e}')
             err = max(err, e)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batches = [frames] + [torch.randint(0, 256, frames.shape,
-                                        dtype=torch.uint8, device=dev,
-                                        generator=gen) for _ in range(2)]
-    times = k1_times(resize_bilinear, batches)
-    times.update(library_times(batches))
-    taps_y = (resize_weights(FRAME[0], 300, dev) > 0).sum()
-    taps_x = (resize_weights(FRAME[1], 300, dev) > 0).sum()
-    n = frames.shape[0]
-    n_bytes = frames.numel() + n * 300 * 300 * 3 * 2
-    n_ops = 2 * 3 * n * int(taps_y) * int(taps_x)
-    print('K1 batch 16 of 720p bf16: ' + ', '.join(
-        f'{k} {v}' for k, v in times.items()))
-    return dict(
-        err=err, **times,
-        plain_ms=time_ms(lambda: resize_bilinear_plain(
-            frames, (300, 300), True, 1 / 255.0, torch.bfloat16), 5),
-        bound=bound_ms(n_bytes, n_ops))
-
-
-def touched_pixels(boxes, h, w, out_hw):
-    """Distinct source pixels that the crops of ``boxes [N,K,4]`` read."""
-    mask = torch.zeros((boxes.shape[0], h, w), dtype=torch.bool,
-                       device=boxes.device)
-    for n in range(boxes.shape[0]):
-        for x0, y0, x1, y1 in boxes[n].tolist():
-            idx = []
-            for lo, hi, size, size_in in ((y0, y1, out_hw[0], h),
-                                          (x0, x1, out_hw[1], w)):
-                side = max(hi - lo, 1.0)
-                s = ((torch.arange(size, device=boxes.device) + 0.5)
-                     * side / size - 0.5 + lo).clamp(0, size_in - 1)
-                i0 = s.floor().long()
-                idx.append(torch.cat([i0, (i0 + 1).clamp(max=size_in - 1)]))
-            mask[n, idx[0][:, None], idx[1][None, :]] = True
-    return int(mask.sum())
-
-
-# K2's cases: (name, frames (N, H, W), boxes, output (h, w)).  'serving':
-# the serving path's 128 boxes of 720p frames; 'tiny': 1-px, sub-pixel,
-# empty and inverted boxes (side floored at 1 px); 'border': boxes touching
-# and crossing each frame border and one wholly outside (clamp); 'full_row':
-# boxes spanning the whole 1280-px row and more; 'upscale': boxes of 22 px
-# and 4 px upscaled 10x and 56x to 224; 'portrait': the evaluation path's
-# 1280x720 frames; 'n1': one frame; 'out64x48' and 'out62x50': output sizes
-# of the CPU tests, 50 columns not a multiple of the kernel's 8-pixel runs
-# and 62 rows not a multiple of its band; 'r288': the serving path of
-# configs/scene_regressor_el0_r288.py (288² crops, 18 bands of 16 rows).
-K2_CASES = (('serving', (16, 720, 1280), 'engine', (224, 224)),
-            ('tiny', (2, 720, 1280), 'tiny', (224, 224)),
-            ('border', (2, 720, 1280), 'border', (224, 224)),
-            ('full_row', (2, 720, 1280), 'full_row', (224, 224)),
-            ('upscale', (2, 720, 1280), 'upscale', (224, 224)),
-            ('portrait', (2, 1280, 720), 'engine', (224, 224)),
-            ('n1', (1, 720, 1280), 'engine', (224, 224)),
-            ('out64x48', (2, 720, 1280), 'engine', (64, 48)),
-            ('out62x50', (2, 720, 1280), 'border', (62, 50)),
-            ('r288', (16, 720, 1280), 'engine', (288, 288)))
-K2_TOLS = ((torch.bfloat16, 2 ** -7 + 1e-4), (torch.float32, 1e-4))
-
-
-def k2_boxes(kind, n, h, w, seed=1):
-    """Boxes [n,8,4] of a K2_CASES kind as numpy."""
-    if kind == 'engine':
-        return engine_like_boxes(n, 8, h, w, seed)
-    rng = np.random.RandomState(seed)
-    x, y = rng.uniform(0, w - 30, 8), rng.uniform(0, h - 30, 8)
-    if kind == 'tiny':
-        b = [[x[0], y[0], x[0] + 1, y[0] + 1],
-             [x[1], y[1], x[1] + .3, y[1] + .2],
-             [x[2], y[2], x[2], y[2]],
-             [x[3], y[3], x[3] - 5, y[3] - 3],
-             [0, 0, 1, 1], [w - 1, h - 1, w, h],
-             [x[6], y[6], x[6] + 1.5, y[6] + .7],
-             [x[7] + .5, y[7] + .5, x[7] + 1.25, y[7] + 3]]
-    elif kind == 'border':
-        b = [[0, 0, 50, 40], [-30, -20, 40, 30], [w - 50, h - 40, w, h],
-             [w - 40, h - 30, w + 30, h + 20], [-10, 100, w + 10, 200],
-             [100, -5, 200, h + 5], [w - 1, h - 1, w + 5, h + 5],
-             [-20, -20, -5, -5]]
-    elif kind == 'full_row':
-        b = [[0, y[0], w, y[0] + 100], [-50, y[1], w + 50, y[1] + 300],
-             [0, 0, w, h], [0, y[3], w, y[3] + 1], [0.5, 0, w - 0.5, 20],
-             [0, h - 224, w, h], [-1, y[6], w + 1, y[6] + 5],
-             [0, y[7], w, y[7] + 10]]
-    elif kind == 'upscale':
-        b = [[x[i], y[i], x[i] + 22.4, y[i] + 22.4] for i in range(6)] + [
-            [x[6], y[6], x[6] + 4, y[6] + 4], [0, 0, 22.4, 22.4]]
-    else:
-        raise ValueError(f'unknown kind {kind!r}')
-    b = np.asarray(b, np.float32)
-    return np.stack([b + 3 * i * (kind not in ('border', 'full_row'))
-                     for i in range(n)])
-
-
-def k2_case(case, dev, seed=0):
-    """The frames, boxes and output size of a K2_CASES entry on ``dev``."""
-    _, (n, h, w), kind, out_hw = next(c for c in K2_CASES if c[0] == case)
-    rng = np.random.RandomState(seed)
-    frames = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
-    return (torch.from_numpy(frames).to(dev),
-            torch.from_numpy(k2_boxes(kind, n, h, w)).to(dev), out_hw)
+    return err
 
 
 def check_k2(dev, ops, norm):
     """K2 against its plain version on every K2_CASES entry with and
-    without the mirror, in bf16 and f32; times at the serving shape, warm,
-    cold, mirrored and at N=1 (k2_bench.k2_times), and F.grid_sample's."""
-    from tpudet3d_torch.tools.k2_bench import (k2_times, library_times,
-                                               serving_inputs)
+    without the mirror, in bf16 and f32; returns the largest error."""
     crop_and_resize, crop_and_resize_plain = ops
     err = 0.0
     for case, *_ in K2_CASES:
@@ -425,104 +302,12 @@ def check_k2(dev, ops, norm):
                 expect(e <= tol, f'K2 {case} mirror={mirror} {dtype} '
                        f'disagrees: {e}')
                 err = max(err, e)
-    batches, boxes = serving_inputs(dev)
-    times = k2_times(crop_and_resize, batches, boxes, norm)
-    times.update(library_times(batches, boxes))
-    print('K2 128 crops of 720p to 224² bf16: ' + ', '.join(
-        f'{k} {v}' for k, v in times.items()))
-    n_out = boxes.shape[0] * boxes.shape[1] * 224 * 224
-    n_bytes = 3 * touched_pixels(boxes, *FRAME[:2], (224, 224)) \
-        + boxes.numel() * 4 + n_out * 3 * 2
-    n_ops = n_out * 3 * 8
-    frames = batches[0]
-    # the r288 config's pass: the same 128 boxes' shape of crop at 288²
-    f288, b288, hw288 = k2_case('r288', dev)
-    args288 = (hw288, True, norm[0], norm[1], False, torch.bfloat16)
-    times.update(
-        ms_288=time_ms(lambda: crop_and_resize(f288, b288, *args288), 50),
-        device_ms_288=profile_call(lambda: crop_and_resize(
-            f288, b288, *args288))[1],
-        bound_ms_288=bound_ms(
-            3 * touched_pixels(b288, *FRAME[:2], hw288) + b288.numel() * 4
-            + b288.shape[0] * b288.shape[1] * 288 * 288 * 3 * 2,
-            b288.shape[0] * b288.shape[1] * 288 * 288 * 3 * 8)[0])
-    return dict(
-        err=err, **times,
-        plain_ms=time_ms(lambda: crop_and_resize_plain(
-            frames, boxes, (224, 224), True, *norm, False, torch.bfloat16),
-            5),
-        bound=bound_ms(n_bytes, n_ops))
-
-
-def compare_dets(out, ref, what):
-    """Rows with score > 0 agree (padded rows carry arbitrary boxes)."""
-    keep = ref[..., 4] > 0
-    expect(bool(keep.any()), f'{what}: no detection')
-    expect(torch.equal(out[..., 4] > 0, keep), f'{what}: kept rows differ')
-    e_s = max_err(out[..., 4][keep], ref[..., 4][keep])
-    e_b = max_err(out[..., :4][keep], ref[..., :4][keep])
-    expect(torch.equal(out[..., 5][keep], ref[..., 5][keep]),
-           f'{what}: labels differ')
-    print(f'{what}: max |kernel - plain| score {e_s:.3g} (tol 1e-6), '
-          f'box {e_b:.3g} px (tol 1e-3)')
-    expect(e_s <= 1e-6 and e_b <= 1e-3, f'{what} disagrees')
-    return max(e_s, e_b)
-
-
-# K3's cases, each on top of K3_BASE: (name, N, logits of
-# k3_bench.det_batch, settings).  The serving path's greedy, soft-NMS and
-# box-vote settings at N=16 and N=1; objectron_eval's floor at det_tresh 0
-# and its --preset recall; background-dominant logits that leave fewer
-# than K candidates per class (zero rows padded); a run of equal scores
-# across the K-th place; K=256 (max_detections 64) and the JAX defaults
-# (K=200, max_per_img 200), above the K up to which the kernel keeps the
-# soft-NMS decays in shared memory; the kernel's large-K instantiation at
-# K=512 (max_detections 128: bit rows in shared memory) and K=2044
-# (max_detections 511, the most the 2044 anchors allow: bit rows in the
-# device scratch); detector training's two shapes: its validation (N=64,
-# K=200, max_det 100) and self-labelling (N=32, K=64, max_det 16, floor
-# 0.05).
-K3_SOFT = K3_SETTINGS['soft']
-K3_CASES = (('greedy', 16, 'random', {}),
-            ('soft', 16, 'random', K3_SOFT),
-            ('vote', 16, 'random', K3_SETTINGS['vote']),
-            ('n1', 1, 'random', {}),
-            ('floor0', 16, 'random', dict(score_thr=0.0)),
-            ('recall', 16, 'random', dict(score_thr=0.005, **K3_SOFT)),
-            ('sparse', 16, 'sparse', {}),
-            ('ties', 16, 'ties', {}),
-            ('k256', 16, 'random', dict(pre_nms_k=256, max_per_img=64)),
-            ('k256_soft', 16, 'random', dict(pre_nms_k=256, max_per_img=64,
-                                            **K3_SOFT)),
-            ('jax_defaults', 16, 'random', dict(pre_nms_k=200,
-                                                max_per_img=200)),
-            ('jax_defaults_vote', 16, 'random', dict(
-                pre_nms_k=200, max_per_img=200, box_vote_iou=0.6)),
-            ('k512', 16, 'random', dict(pre_nms_k=512, max_per_img=128)),
-            ('k512_soft', 16, 'random', dict(
-                pre_nms_k=512, max_per_img=128, soft_nms_sigma=0.5,
-                soft_nms_dup_iou=0.8)),
-            ('k2044', 16, 'random', dict(pre_nms_k=2044, max_per_img=511)),
-            ('k2044_vote', 16, 'random', dict(
-                pre_nms_k=2044, max_per_img=511, box_vote_iou=0.6)),
-            ('det_eval', 64, 'random', dict(pre_nms_k=200,
-                                            max_per_img=100)),
-            ('selflabel', 32, 'random', dict(score_thr=0.05, pre_nms_k=64,
-                                             max_per_img=16)))
-
-
-def k3_case(case, dev, n=None):
-    """Logits and deltas of a K3_CASES entry on ``dev`` (its first ``n``
-    images, all by default) and its decode settings."""
-    _, n_case, kind, kw = next(c for c in K3_CASES if c[0] == case)
-    logits, deltas = det_batch(n_case, kind)
-    return (torch.from_numpy(logits[:n]).to(dev),
-            torch.from_numpy(deltas[:n]).to(dev), dict(K3_BASE, **kw))
+    return err
 
 
 def check_k3(dev, ops, anchors):
-    """K3 against its plain version on every K3_CASES entry; times at
-    N=16, A=2044, C=9, K=32 (k3_bench.k3_times)."""
+    """K3 against its plain version on every K3_CASES entry; returns the
+    largest error."""
     decode_detections, decode_detections_plain = ops
     err = 0.0
     for case, *_ in K3_CASES:
@@ -531,102 +316,7 @@ def check_k3(dev, ops, anchors):
             decode_detections(logits, deltas, anchors, **kw),
             decode_detections_plain(logits, deltas, anchors, **kw),
             f'K3 {case} N={logits.shape[0]}'))
-    logits, deltas, _ = k3_case('greedy', dev)
-    times = k3_times(decode_detections, logits, deltas, anchors)
-    print('K3 N=16 K=32: ' + ', '.join(f'{k} {v}' for k, v in times.items()))
-    n_bytes = (logits.numel() + deltas.numel() + anchors.numel()
-               + 16 * 8 * 6) * 4
-    # softmax (sub, exp, add, div per logit), decode, and the K^2 IoUs of
-    # each (image, class)
-    n_ops = logits.numel() * 4 + 16 * 9 * (32 * 32 * 12 + 32 * 16)
-    return dict(
-        err=err, ms=times.pop('ms_greedy'), **times,
-        plain_ms=time_ms(lambda: decode_detections_plain(
-            logits, deltas, anchors, **K3_BASE), 3),
-        library_ms=None, bound=bound_ms(n_bytes, n_ops))
-
-
-def k4_inputs(b, tta, seed=0, nan_ties=False):
-    """Regressor outputs for K4 over b crops as numpy: pre-activations
-    [B',9,18] (every 7th crop saturated, so keypoints press against the
-    crop edge), logits [B',9] exactly representable in bfloat16 with exact
-    ties at the maximum (the same in a crop and its mirror), crop boxes
-    [b,4] in a 720p frame and detections [b,6] (every 5th a padded row
-    with score 0).  With ``nan_ties`` the logits follow K4_SPECIAL_ROWS
-    instead, a crop's mirror three patterns on from the crop's own.  The
-    card tests (tests/test_torch_port_kernels.py) and the CPU parity tests
-    use these inputs too."""
-    rng = np.random.RandomState(seed)
-    b2 = 2 * b if tta else b
-    pre = rng.normal(0.0, 2.0, (b2, 9, 18)).astype(np.float32)
-    pre[::7] *= 8.0
-    logits = rng.normal(0.0, 2.0, (b2, 9)).astype(np.float32)
-    logits = torch.from_numpy(logits).bfloat16().float().numpy()
-    if nan_ties:
-        logits = -np.abs(logits) - 1.0
-        for r in range(b2):
-            pattern = K4_SPECIAL_ROWS[(r % b + 3 * (r >= b))
-                                      % len(K4_SPECIAL_ROWS)]
-            for c, v in pattern.items():
-                logits[r, c] = v
-    else:
-        group = np.arange(b2) % b % 3
-        logits[group == 0, 4] = logits[group == 0, 6] = 8.0
-        logits[group == 1, 2] = logits[group == 1, 7] = 9.0
-    w, h = K4_REFINE[:2]
-    x0 = rng.uniform(-20, w, b)
-    y0 = rng.uniform(-20, h, b)
-    boxes = np.stack([x0, y0, x0 + rng.uniform(0.5, 400, b),
-                      y0 + rng.uniform(0.5, 300, b)], -1)
-    boxes = np.clip(boxes, 0, [w, h, w, h]).astype(np.float32)
-    dets = np.zeros((b, 6), np.float32)
-    dets[:, :4] = boxes
-    dets[:, 4] = rng.uniform(0, 1, b)
-    dets[::5, 4] = 0.0
-    dets[:, 5] = rng.randint(0, 9, b)
-    return pre, logits, boxes, dets
-
-
-# K4's logit rows with NaNs and ties ({class: value} over negative logits),
-# cycled over the crops: torch.argmax takes the first NaN, else the first
-# maximum.  Ties sit in lanes far apart in K4's warp reduction (1 and 8,
-# 2 and 7), all nine tie, -0.0 ties +0.0, and with TTA a crop and its
-# mirror give inf - inf = NaN or NaN + x.
-K4_SPECIAL_ROWS = (
-    {c: 1.5 for c in range(9)},                      # 0: all nine tie
-    {1: 4.0, 8: 4.0},                                # 1
-    {6: np.nan, 3: np.nan, 0: 7.0},                  # 3: first NaN
-    {8: np.nan, 0: np.inf},                          # 8: NaN beats inf
-    {c: -np.inf for c in range(9)},                  # 0: all -inf
-    {2: np.inf, 7: np.inf},                          # 2
-    {5: -0.0, 4: 0.0},                               # 4: -0.0 == +0.0
-    {8: 3.0},                                        # 8: the last class
-)
-
-
-def k4_error(out, ref, refine):
-    """K4's output ``out`` against its plain version's ``ref``: (max error,
-    whether it is within tolerance).  Refine mode: boxes within 1e-4 px;
-    pack mode: keypoints within 1e-6, and boxes, scores, labels and
-    conf_mask exact (the error is inf where they differ)."""
-    if refine:
-        e = max_err(out, ref)
-        return e, e <= 1e-4
-    rest = [0, 1, 2, 3, 4, 5, 24, 25]
-    if not torch.equal(out[:, rest], ref[:, rest]):
-        return float('inf'), False
-    e = max_err(out[:, 6:24], ref[:, 6:24])
-    return e, e <= 1e-6
-
-
-def compare_k4(out, ref, what, refine):
-    """Expects K4 within :func:`k4_error`'s tolerance; returns the error."""
-    e, ok = k4_error(out, ref, refine)
-    print(f'{what}: max |kernel - plain| '
-          + (f'box {e:.3g} px (tol 1e-4)' if refine
-             else f'kp {e:.3g} (tol 1e-6; boxes, scores, labels exact)'))
-    expect(ok, f'{what} disagrees')
-    return e
+    return err
 
 
 def profile_call(fn, calls=20):
@@ -652,16 +342,10 @@ def profile_call(fn, calls=20):
     return None, None
 
 
-# K4's crop counts beyond the serving pass's 128: one warp's crop alone,
-# and a last CTA of 3 or 1 live warps
-K4_CASES = ((128, False), (1, False), (127, False), (129, False),
-            (128, True), (1, True), (127, True), (129, True))
-
-
 def check_k4(dev, ops):
     """K4 against its plain version on every (B, NaNs and ties) of
-    K4_CASES with TTA off and on, in refine and pack mode; times the
-    serving path's pass (B=128, pack, no TTA) and the launch floor."""
+    K4_CASES with TTA off and on, in refine and pack mode; returns the
+    largest error."""
     head_epilogue, head_epilogue_plain = ops
     err = 0.0
     for b, nan_ties in K4_CASES:
@@ -678,159 +362,13 @@ def check_k4(dev, ops):
                     head_epilogue_plain(pre, logits, boxes, **kw),
                     f'K4 B={b} tta={tta} nan_ties={nan_ties} '
                     f'{"refine" if refine else "pack"}', refine))
-    # the serving path's last pass: TTA off, pack mode
-    pre, logits, boxes, dets = (torch.from_numpy(a).to(dev)
-                                for a in k4_inputs(128, False, 5))
-    logits = logits.bfloat16()
-    (n_k, dev_ms), (n_p, plain_dev_ms) = (
-        profile_call(lambda f=f: f(pre, logits, boxes, dets=dets))
-        for f in ops)
-    print(f'K4 per pass (torch.profiler): kernel {n_k} launch, '
-          f'{dev_ms} ms on the device; plain version {n_p} launches, '
-          f'{plain_dev_ms} ms')
-    return dict(
-        launches_per_pass=[n_k, n_p], device_ms=dev_ms,
-        plain_device_ms=plain_dev_ms,
-        err=err,
-        ms=time_ms(lambda: head_epilogue(pre, logits, boxes, dets=dets),
-                   200),
-        plain_ms=time_ms(lambda: head_epilogue_plain(pre, logits, boxes,
-                                                     dets=dets), 20),
-        library_ms=None, floor_ms=launch_floor_ms(dev),
-        bound=bound_ms(*k4_work(boxes.shape[0], logits.shape[1],
-                                logits.element_size())))
+    return err
 
 
-def box_kps(center, half, rot=np.eye(3)):
-    """Objectron 9-keypoint box: centre, then the 8 corners in binary
-    ±e1±e2±e3 order."""
-    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-                        for sz in (-1, 1)], float)
-    return np.concatenate([[center], corners * half @ rot.T + center])
-
-
-def rotation(angles):
-    cx, sx = np.cos(angles[0]), np.sin(angles[0])
-    cy, sy = np.cos(angles[1]), np.sin(angles[1])
-    cz, sz = np.cos(angles[2]), np.sin(angles[2])
-    return (np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
-            @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
-            @ np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]]))
-
-
-def projected_box_keypoints(n, seed=0):
-    """[n,9,2] float32 keypoints in [0,1] of random oriented boxes 1.5–3 m
-    in front of the default camera, projected as portrait frames are (the
-    regressor's training targets; the metrics lift them back).  A box
-    whose projection leaves [0,1] is drawn again."""
-    from tpudet3d_torch.ops import geometry
-    rng = np.random.RandomState(seed)
-    cam = geometry.convert_camera_matrix_2_ndc(
-        geometry.get_default_camera_matrix())
-    out = []
-    while len(out) < n:
-        box = box_kps(np.r_[rng.uniform(-0.4, 0.4, 2), rng.uniform(-3, -1.5)],
-                      rng.uniform(0.1, 0.5, 3),
-                      rotation(rng.uniform(-np.pi, np.pi, 3)))
-        uv = geometry.project_3d_points(box, cam)
-        xy = np.stack([(uv[:, 1] + 1) / 2, (uv[:, 0] + 1) / 2], -1)
-        if xy.min() >= 0.0 and xy.max() <= 1.0:
-            out.append(xy)
-    return np.stack(out).astype(np.float32)
-
-
-def k5_fuzz_pairs(n, seed=0):
-    """n pairs of random oriented boxes [n,9,3] x 2 (float32): random
-    rotations, sides 0.05-2, centres within 0.3 of the origin so most
-    pairs overlap."""
-    rng = np.random.RandomState(seed)
-
-    def one():
-        return box_kps(rng.uniform(-0.3, 0.3, 3),
-                       rng.uniform(0.05, 2.0, 3) / 2,
-                       rotation(rng.uniform(-np.pi, np.pi, 3)))
-
-    pairs = [(one(), one()) for _ in range(n)]
-    return (np.stack([p[0] for p in pairs]).astype(np.float32),
-            np.stack([p[1] for p in pairs]).astype(np.float32))
-
-
-def k5_exact_cases():
-    """(name, box, box, exact IoU) of the unit box against: itself, a half
-    shift, a 45° turn, a nested box, a disjoint box, a touching box and a
-    box with a NaN corner."""
-    half = np.array([.5, .5, .5])
-    unit = box_kps(np.zeros(3), half)
-    th = np.pi / 4
-    rot = np.array([[np.cos(th), -np.sin(th), 0],
-                    [np.sin(th), np.cos(th), 0], [0, 0, 1]])
-    inter = 2 * (np.sqrt(2) - 1)
-    bad = unit.copy()
-    bad[3] = np.nan
-    return [('self', unit, unit, 1.0),
-            ('half_shift', unit, box_kps(np.array([.5, 0, 0]), half), 1 / 3),
-            ('rot45', unit, box_kps(np.zeros(3), half, rot),
-             inter / (2 - inter)),
-            ('nested', unit, box_kps(np.zeros(3), half / 2), 0.125),
-            ('disjoint', unit, box_kps(np.array([5., 0, 0]), half), 0.0),
-            ('touching', unit, box_kps(np.array([1., 0, 0]), half), 0.0),
-            ('nan', bad, unit, 0.0)]
-
-
-def k4_work(b, n_classes, logit_bytes):
-    """Bytes and operations that K4 needs for b crops in pack mode without
-    TTA (the serving path's pass): the selected head's 18 pre-activations
-    of each crop (the other 8 heads are never read), every logit, the
-    boxes, the detections and the packed rows; a compare per logit and a
-    sigmoid per read pre-activation (negate, exp, add, reciprocal)."""
-    n_bytes = b * (18 * 4 + n_classes * logit_bytes + 16 + 24 + 26 * 4)
-    return n_bytes, b * (n_classes + 18 * 4)
-
-
-# K5's work besides the clip passes, per pair: box axes, determinants and
-# halfspaces of both boxes (2 x 182), the volumes (2), 12 face normals
-# (12 x 18), the 72 coincidence tolerances (36 x 9 with the normals' dot
-# product, 36 x 3 without) and the fan sums and quotients (42)
-K5_PAIR_OPS = 2 * 182 + 2 + 12 * 18 + 36 * 9 + 36 * 3 + 42
-
-
-def k5_work(a, b, box3d):
-    """Bytes and operations that K5 needs for these pairs, counted on this
-    data by running the plain version: each clip pass visits the polygon's
-    valid vertices (7 flops each: the plane distance and the test) and
-    computes an intersection at each crossing (12 flops); each clipped face
-    of n vertices has n - 2 fan triangles (15 flops each); plus
-    K5_PAIR_OPS per pair."""
-    seen = dict(visits=0, crossings=0, triangles=0)
-    clip, fan = box3d._clip, box3d._fan_volume
-
-    def counting_clip(poly, count, normal, offset, eps):
-        out, n_out = clip(poly, count, normal, offset, eps)
-        valid = torch.arange(poly.shape[1], device=poly.device) \
-            < count[:, None]
-        d = box3d._dot(poly, normal[:, None, :]) - offset[:, None]
-        inside = int(((d <= eps[:, None]) & valid).sum())
-        seen['visits'] += int(valid.sum())
-        seen['crossings'] += int(n_out.sum()) - inside
-        return out, n_out
-
-    def counting_fan(poly, count):
-        seen['triangles'] += int((count - 2).clamp(0, poly.shape[1] - 2)
-                                 .sum())
-        return fan(poly, count)
-
-    box3d._clip, box3d._fan_volume = counting_clip, counting_fan
-    try:
-        box3d.iou_oriented_boxes_plain(a, b)
-    finally:
-        box3d._clip, box3d._fan_volume = clip, fan
-    p = a.shape[0]
-    n_ops = (seen['visits'] * 7 + seen['crossings'] * 12
-             + seen['triangles'] * 15 + p * K5_PAIR_OPS)
-    return (a.numel() + b.numel() + p) * 4, n_ops
-
-
-def check_k5(dev, ops, box3d):
+def check_k5(dev, ops):
+    """K5 against its plain version at P=1, 8, 128 and 129 and on the
+    exact cases, and against scipy on 32 pairs; returns the largest error
+    against the plain version and against scipy."""
     iou, iou_plain, iou_host = ops
     err = 0.0
     for p in (1, 8, 128, 129):
@@ -850,18 +388,7 @@ def check_k5(dev, ops, box3d):
     e_host = float(np.abs(got.cpu().numpy() - host).max())
     print(f'K5 32 pairs: max |kernel - scipy| = {e_host:.3g} (tol 1e-4)')
     expect(e_host <= 1e-4, f'K5 disagrees with scipy: {e_host}')
-    out = {}
-    for p, iters in ((128, 200), (8, 200)):
-        a, b = (torch.from_numpy(x).to(dev) for x in k5_fuzz_pairs(p, p))
-        out[p] = dict(
-            ms=time_ms(lambda: iou(a, b), iters),
-            device_ms=profile_call(lambda: iou(a, b))[1],
-            plain_ms=time_ms(lambda: iou_plain(a, b), 10),
-            bound=bound_ms(*k5_work(a, b, box3d)))
-        print(f'K5 P={p}: {out[p]["ms"]} ms per call back to back, '
-              f'{out[p]["device_ms"]} ms on the device')
-    return dict(err=err, host_err=e_host, library_ms=None,
-                floor_ms=launch_floor_ms(dev), **out[128], p8=out[8])
+    return err, e_host
 
 
 def check_results(results, h, w):
@@ -953,37 +480,6 @@ def wide_path(dev, wrappers, frames_np, plain, norm):
                '128')
     errs = path_intermediates(engine, frames_np, plain, norm)
     return dict(launches=launches, detections=n_det, errs=errs)
-
-
-def serving_times(engine, dev, iters):
-    h, w = FRAME[:2]
-    out = {}
-    gen = torch.Generator(device=dev).manual_seed(3)
-    for b in (16, 32):
-        frames = torch.randint(0, 256, (b, *FRAME), dtype=torch.uint8,
-                               device=dev, generator=gen)
-        engine._pipeline_batch(frames, h, w)
-        torch.cuda.synchronize()
-        vals = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                engine._pipeline_batch(frames, h, w)
-            torch.cuda.synchronize()
-            vals.append(b * iters / (time.perf_counter() - t0))
-        vals.sort()
-        out[f'server_fps_b{b}'] = vals[1]
-        out[f'server_fps_b{b}_spread'] = [vals[0], vals[2]]
-    frame = frames[0]
-    lat = []
-    for _ in range(5 * iters):
-        t0 = time.perf_counter()
-        engine._pipeline(frame, h, w)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    out['latency_ms_p50'], out['latency_ms_p99'] = (
-        float(v) for v in np.percentile(lat, [50, 99]))
-    return out
 
 
 def eval_examples(n, seed, geometry):
@@ -1176,132 +672,12 @@ def eval_path(dev, wrappers):
     return out
 
 
-# Phase 6: the flagship regressor config, its 288² variant, the frames of
-# the demo loop (moving_frames) and of the Detector
-EL0_CONFIG = 'configs/scene_regressor_el0_ema.py'
+# Phase 6: the flagship regressor config (cases.EL0_CONFIG), its 288²
+# variant, the frames of the demo loop (cases.moving_frames) and of the
+# Detector
 R288_CONFIG = 'configs/scene_regressor_el0_r288.py'
 DEMO_FRAMES = 32
 DETECTOR_FRAMES = 4
-
-
-def write_snapshots(root):
-    """Phase 6a: a cascade MNv2-SSD-300 w1.0 and an EfficientNet-lite0
-    regressor (seeded) as converted snapshots ``snap_3.pt`` under ``root``;
-    the regressor's EMA differs from its raw weights.  Returns the paths,
-    the in-memory modules and the state_dicts."""
-    import os
-    from tpudet3d_torch.core import read_py_config
-    from tpudet3d_torch.infer.build import build_detector
-    from tpudet3d_torch.models import build_model
-    from tpudet3d_torch.utils.checkpoint import save_converted
-
-    def weights(module):
-        return {k: v.detach().clone() for k, v in module.state_dict().items()
-                if not k.endswith('num_batches_tracked')}
-
-    gen = torch.Generator().manual_seed(6)
-    det = build_detector(cascade=True, generator=gen)
-    reg = build_model(read_py_config(EL0_CONFIG), generator=gen)
-    params = weights(reg)
-    ema = {k: v if 'running_' in k else v + 0.01 * torch.randn(
-        v.shape, generator=gen) for k, v in params.items()}
-    paths = {}
-    for kind, sd, extra in (('detector', weights(det), None),
-                            ('regressor', params, ema)):
-        os.makedirs(os.path.join(root, kind))
-        paths[kind] = save_converted(os.path.join(root, kind, 'snap_3.pt'),
-                                     kind, 3, sd, extra)
-    return paths, det, reg, params, ema
-
-
-def drive(wrappers, fn):
-    """``fn()`` with the launch counts set to 0 just before it; returns its
-    result and the counts read just after it (on the CPU the wrappers
-    count nothing)."""
-    for f in wrappers:
-        f.launches = 0
-    out = fn()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return out, [f.launches for f in wrappers]
-
-
-# the kernels each wrapper of K1-K8 launches, as a device trace names them
-KERNEL_NAMES = (('resize_tiled_u8_kernel',), ('crop_band_kernel',),
-                ('decode_nms_kernel',), ('head_epilogue_kernel',),
-                ('box3d_iou_kernel',),
-                ('quantize_rows_kernel', 'quantize_staged_kernel',
-                 'quantize_input_kernel'), ('int8_rescale_kernel',),
-                ('window_attn_kernel',))
-REPLAYS_TRACED = 3           # the replays a drive_replay counts over
-
-
-def traced_launches(wrappers, fn, calls=1, warm=None):
-    """``fn()`` ``calls`` times under a profile of the card's activity
-    alone: the last call's result and the launches a call of each
-    wrapper's kernels (:data:`KERNEL_NAMES`), counted by name from the
-    trace, eager and replayed alike.  The tracer loses the first events
-    of a session while it starts, so a warm-up step (``warm()``, by
-    default ``fn()``) is traced and thrown away first (the profiler's
-    schedule).  A session that records no device activity is repeated,
-    up to three times."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            (warm or fn)()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(calls):
-                out = fn()
-            torch.cuda.synchronize()
-            prof.step()
-        events = device_events(prof)
-        if events:
-            break
-    return out, [sum(any(n in e.name for n in names) for e in events)
-                 // calls for names, _ in zip(KERNEL_NAMES, wrappers)]
-
-
-def drive_replay(wrappers, fn):
-    """``fn()``, a call of a card engine's ``infer_batch``, once (the
-    capture of its graph, if its key is new) and then
-    :data:`REPLAYS_TRACED` times under :func:`traced_launches`: returns
-    the last call's result and the launches a call.  A replay calls no
-    kernel wrapper, so the wrappers' own counts must stay 0 over it.
-    Without a card the call is eager and :func:`drive` counts it."""
-    if not torch.cuda.is_available():
-        return drive(wrappers, fn)
-    fn()
-    torch.cuda.synchronize()
-    for f in wrappers:
-        f.launches = 0
-    out, n = traced_launches(wrappers, fn, REPLAYS_TRACED)
-    expect(all(f.launches == 0 for f in wrappers),
-           f'a replay called the kernel wrappers: '
-           f'{[f.launches for f in wrappers]}')
-    return out, n
-
-
-def moving_frames(n, shape=None, seed=7):
-    """n BGR frames of ``shape`` (default FRAME): noise with 3 flat boxes
-    moving 3 px right and 1 px down a frame."""
-    h, w, _ = shape or FRAME
-    rng = np.random.RandomState(seed)
-    base = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
-    boxes = [(int(w * x0), int(h * y0), int(w * x1), int(h * y1)) for
-             x0, y0, x1, y1 in ((0.15, 0.2, 0.33, 0.55), (0.47, 0.28, 0.64,
-                                                         0.72),
-                                (0.7, 0.42, 0.86, 0.83))]
-    colors = rng.randint(0, 256, (3, 3))
-    out = []
-    for t in range(n):
-        f = base.copy()
-        for (x0, y0, x1, y1), c in zip(boxes, colors):
-            f[y0 + t:y1 + t, x0 + 3 * t:x1 + 3 * t] = c
-        out.append(f)
-    return out
 
 
 @contextlib.contextmanager
@@ -1328,7 +704,7 @@ def same_results(a, b, what):
     return err
 
 
-def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
+def flagship_path(dev, wrappers, frames_np, plain, norm):
     """Phase 6: the flagship EfficientNet-lite0 regressor and the cascade
     detector served from converted snapshots at full width; returns its
     numbers.  Each drive of a path is counted by :func:`drive`, and every
@@ -1404,10 +780,7 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
     expect(sum(len(r['scores']) for r in res) > 0, 'r288: no detection')
     del r288
 
-    # (d) el0 serving times
-    out['serving'] = serving_times(engine, dev, iters)
-
-    # (e) the demo loop: pipelined engine and tracker over moving frames
+    # (d) the demo loop: pipelined engine and tracker over moving frames
     frames = moving_frames(DEMO_FRAMES)
     tracker = IOUTracker(**vars(IOUTrackerConfig()))
     stats = {}
@@ -1433,7 +806,7 @@ def flagship_path(dev, wrappers, frames_np, plain, norm, iters):
           f'{max(lengths)} frames, {labelled} labelled objects, '
           f'assignment route {route}; results equal infer_batch of one frame')
 
-    # (f) split inference: the Detector wrapper (K1, K3)
+    # (e) split inference: the Detector wrapper (K1, K3)
     detector = Detector(engine.det_model, conf=0.0, device=dev)
     split = counted('Detector', lambda: [detector.get_detections(f) for f in
                                          frames[:DETECTOR_FRAMES]],
@@ -1467,89 +840,7 @@ def check_detector(detector, f, plain):
     return detector._decode(rows.cpu().numpy(), f.shape)
 
 
-# Phase 7: int8 serving.  K6's cases: (name, NCHW shape, kernel, stride,
-# pad, element offset of the input in its buffer, K6's route in bf16 and
-# in f32 for channels-last memory; NCHW memory takes ``strided``): the
-# stems of the detector (batch 16 at 300²) and of the regressor (128 crops
-# at 224²), 1×1 convs at M = 17, 49 and 128·49 rows, the first two with a
-# depth padded from 24 to 32, the third el0's widest (1152), a served
-# padded 1×1 (72 → 80 at 56², 128 crops), a 1×1 of depth 20 (not whole
-# 16-byte bf16 vectors, whole f32 ones), one of odd depth, one at an odd
-# element offset (an unaligned pointer), a 5×5 stride 2 at an odd size,
-# and a 3×3 whose last band, 1 output row of 2, stages the zero row below
-# the frame
-K6_CASES = (('stem300', (16, 3, 300, 300), 3, 2, 1, 0, ('staged', 'staged')),
-            ('stem224', (128, 3, 224, 224), 3, 2, 1, 0,
-             ('staged', 'staged')),
-            ('m17', (1, 24, 1, 17), 1, 1, 0, 0, ('rows', 'rows')),
-            ('m49', (1, 24, 7, 7), 1, 1, 0, 0, ('rows', 'rows')),
-            ('m6272', (128, 1152, 7, 7), 1, 1, 0, 0, ('rows', 'rows')),
-            ('pad72', (128, 72, 56, 56), 1, 1, 0, 0, ('rows', 'rows')),
-            ('c20', (2, 20, 9, 9), 1, 1, 0, 0, ('strided', 'rows')),
-            ('c13', (2, 13, 9, 9), 1, 1, 0, 0, ('strided', 'strided')),
-            ('odd', (1, 24, 7, 7), 1, 1, 0, 1, ('strided', 'strided')),
-            ('k5s2', (2, 40, 13, 11), 5, 2, 2, 0, ('staged', 'staged')),
-            ('k3edge', (128, 16, 21, 21), 3, 1, 1, 0,
-             ('staged', 'staged')))
-# K7's cases: (name, M, N, Np, bias): M = 17, 49 and 128·49 rows at the
-# regressor's widths; N = 20 of Np = 24 takes the element-wise path
-K7_CASES = (('m17', 17, 320, 320, False), ('m49', 49, 960, 960, True),
-            ('m6272', 6272, 1280, 1280, False),
-            ('m6272_bias', 6272, 320, 320, True),
-            ('n20', 49, 20, 24, True))
-
-
-def k6_input(case, dtype, dev, channels_last=True, seed=0):
-    """The input of a K6_CASES entry: normal values times 40 with every
-    7th an exact half (a rounding tie at ``s_x = 127``) and a few past
-    the clip, at the case's element offset in its buffer; returns ``(x,
-    kernel, stride, pad)``."""
-    _, shape, k, stride, pad, offset, _ = next(c for c in K6_CASES
-                                               if c[0] == case)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(shape, generator=gen, device=dev) * 40.0
-    flat = x.view(-1)
-    flat[::7] = flat[::7].round() + 0.5
-    flat[:4] = torch.tensor([200.0, -200.0, 126.5, -127.5], device=dev)
-    x = x.to(dtype)
-    if channels_last:
-        x = x.contiguous(memory_format=torch.channels_last)
-    if offset:
-        buf = torch.zeros(x.numel() + offset, dtype=dtype, device=dev)
-        view = buf[offset:].as_strided(x.shape, x.stride())
-        view.copy_(x)
-        x = view
-    return x, k, stride, pad
-
-
-def k6_route(case, dtype, channels_last=True):
-    """The route K6 must take on a K6_CASES entry."""
-    routes = next(c for c in K6_CASES if c[0] == case)[-1]
-    return routes[dtype == torch.float32] if channels_last else 'strided'
-
-
-def k6_plan(qops, x, kernel, stride, pad):
-    """K6's plan for ``x`` on its card (the C entry refuses another)."""
-    from tpudet3d_torch.ops.image import _sm_count
-    return qops.quantize_plan(tuple(x.shape), x.stride(), x.dtype, kernel,
-                              stride, pad, x.data_ptr(), _sm_count(x.device))
-
-
-def k7_input(case, dev, seed=0):
-    """int32 sums, a per-channel scale and a bias (or None) of a K7_CASES
-    entry, the sums spanning up to the largest the regressor's widest conv
-    can reach (127²·1152)."""
-    _, m, n, n_pad, bias = next(c for c in K7_CASES if c[0] == case)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    y = torch.randint(-127 * 127 * 1152, 127 * 127 * 1152, (m, n_pad),
-                      generator=gen, device=dev, dtype=torch.int32)
-    y[0, :4] = torch.tensor([2 ** 24 + 1, 257, -(2 ** 24 + 3), 0],
-                            device=dev, dtype=torch.int32)
-    scale = torch.rand(n, generator=gen, device=dev) * 1e-4
-    b = torch.randn(n, generator=gen, device=dev) if bias else None
-    return y, scale, b
-
-
+# Phase 7: int8 serving, on K6's and K7's cases (cases.K6_CASES, K7_CASES)
 def check_int8_kernels(dev, quant_ops):
     """K6 and K7 against their plain versions, bit for bit, on every
     K6_CASES and K7_CASES entry in bf16 and f32; torch._int_mm on the
@@ -1622,34 +913,6 @@ def check_int8_kernels(dev, quant_ops):
                 int_mm_unpadded_refused=refused)
 
 
-@contextlib.contextmanager
-def plain_quant(qops):
-    """K6 and K7 through their plain versions, also on the card."""
-    saved = qops.quantize_input, qops.rescale
-    qops.quantize_input, qops.rescale = (qops.quantize_input_plain,
-                                         qops.rescale_plain)
-    try:
-        yield
-    finally:
-        qops.quantize_input, qops.rescale = saved
-
-
-@contextlib.contextmanager
-def recording_int8_convs(quant):
-    """Every int8 conv's ``(x, layer, s_x)`` in the calls inside."""
-    calls, conv = [], quant.int8_conv
-
-    def record(x, layer, s_x):
-        calls.append((x, layer, s_x))
-        return conv(x, layer, s_x)
-
-    quant.int8_conv = record
-    try:
-        yield calls
-    finally:
-        quant.int8_conv = conv
-
-
 def int8_err(a, b):
     """Largest |a - b| of two int8 tensors, in int8 steps."""
     return int((a.int() - b.int()).abs().max())
@@ -1657,20 +920,19 @@ def int8_err(a, b):
 
 def int8_kernel_times(qops, calls):
     """K6, torch._int_mm and K7 over the int8 convs of one serving call
-    (``calls`` from recording_int8_convs): each kernel's largest |kernel -
-    plain| at these shapes, device ms per call from the profiler,
-    back-to-back ms, the plain versions' ms, each kernel's bound (bytes:
+    (``calls`` from recording_int8_convs): K6's route of every conv, none
+    ``strided``; K6's and K7's largest |kernel - plain| at these shapes;
+    K7's and ``_int_mm``'s device ms per call from the profiler,
+    back-to-back ms, K7's plain version's ms, each one's bound (bytes:
     every input read once, every output written once; K7 reads the N
     columns of each row that it rescales, not the padded width) and, for
     K7, the library call ``torch.mul(y[:, :N], scale)``.  No served conv
     has a bias (``ConvBN``), so that product is K7's whole function there;
-    it is checked bit for bit against the plain version.  K6's route of
-    every conv, none ``strided``, and K6 on the device split by route,
-    each with its bytes and bound."""
-    k6_args, mm_args, k7_args, lib_args = [], [], [], []
-    k6_bytes = k7_bytes = k6_ops = k7_ops = mm_ops = mm_bytes = 0
-    k6_err, k7_err = 0, 0.0
-    by_route, conv_routes = {}, []
+    it is checked bit for bit against the plain version.  K6's own times
+    are ``tools/k6_bench.py``'s."""
+    mm_args, k7_args, lib_args = [], [], []
+    k7_bytes = k7_ops = mm_ops = mm_bytes = 0
+    k6_err, k7_err, conv_routes = 0, 0.0, []
     for x, layer, s_x in calls:
         expect(layer.bias is None, 'a served int8 conv has a bias')
         args = (x, s_x, layer.kernel_size, layer.stride, layer.padding)
@@ -1680,14 +942,9 @@ def int8_kernel_times(qops, calls):
         conv_routes.append(f'{"x".join(map(str, x.shape))} '
                            f'k{layer.kernel_size[0]} {route}')
         rows = qops.quantize_input(*args)
-        group = by_route.setdefault(route, dict(args=[], bytes=0, ops=0))
-        group['args'].append(args)
-        group['bytes'] += x.numel() * x.element_size() + rows.numel()
-        group['ops'] += 3 * rows.numel()
         k6_err = max(k6_err, int8_err(rows, qops.quantize_input_plain(*args)))
         w, scale = qops.int8_weight(layer, s_x)
         y = torch._int_mm(rows, w.t())
-        k6_args.append(args)
         mm_args.append((rows, w.t()))
         k7_args.append((y, scale, None, x.dtype))
         n = scale.numel()
@@ -1696,42 +953,27 @@ def int8_kernel_times(qops, calls):
         k7_err = max(k7_err, max_err(qops.rescale(*k7_args[-1]), ref))
         expect(torch.equal(torch.mul(*lib_args[-1]), ref),
                'torch.mul(y, scale) differs from the plain K7')
-        k6_bytes += x.numel() * x.element_size() + rows.numel()
-        k6_ops += 3 * rows.numel()
         k7_bytes += y.shape[0] * n * (4 + x.element_size()) + n * 4
         k7_ops += 2 * y.shape[0] * n
         mm_ops += 2 * rows.shape[0] * rows.shape[1] * w.shape[0]
         mm_bytes += rows.numel() + w.numel() + y.numel() * 4
+    k7 = lambda: [qops.rescale(*a) for a in k7_args]  # noqa: E731
     library = lambda: [torch.mul(*a) for a in lib_args]  # noqa: E731
-    out = {}
-    for name, fn, plain, lib, err, (n_bytes, n_ops) in (
-            ('K6', lambda: [qops.quantize_input(*a) for a in k6_args],
-             lambda: [qops.quantize_input_plain(*a) for a in k6_args],
-             None, k6_err, (k6_bytes, k6_ops)),
-            ('K7', lambda: [qops.rescale(*a) for a in k7_args],
-             lambda: [qops.rescale_plain(*a) for a in k7_args],
-             library, k7_err, (k7_bytes, k7_ops))):
-        out[name] = dict(
-            launches_per_call=len(calls), err=err, ms=time_ms(fn, 10),
-            device_ms=profile_call(fn, 10)[1], plain_ms=time_ms(plain, 3),
-            bound=bound_ms(n_bytes, n_ops), bytes=n_bytes,
-            library_ms=None if lib is None else time_ms(lib, 10),
-            library_device_ms=None if lib is None else profile_call(lib,
-                                                                    10)[1])
-    out['K6']['conv_routes'] = conv_routes
-    out['K6']['routes'] = {
-        route: dict(launches=len(g['args']), bytes=g['bytes'],
-                    bound=bound_ms(g['bytes'], g['ops']),
-                    device_ms=profile_call(lambda g=g: [
-                        qops.quantize_input(*a) for a in g['args']], 10)[1])
-        for route, g in by_route.items()}
     mm = lambda: [torch._int_mm(a, b) for a, b in mm_args]  # noqa: E731
-    out['int_mm'] = dict(device_ms=profile_call(mm, 10)[1],
-                         ms=time_ms(mm, 10), tera_ops=mm_ops / 1e12,
-                         bytes=mm_bytes,
-                         bound_ms=max(mm_ops / INT8_OPS,
-                                      mm_bytes / HBM_BYTES_PER_S) * 1e3)
-    return out
+    return {'K6': dict(launches_per_call=len(calls), err=k6_err,
+                       conv_routes=conv_routes),
+            'K7': dict(launches_per_call=len(calls), err=k7_err,
+                       ms=time_ms(k7, 10), device_ms=profile_call(k7, 10)[1],
+                       plain_ms=time_ms(lambda: [qops.rescale_plain(*a) for
+                                                 a in k7_args], 3),
+                       bound=bound_ms(k7_bytes, k7_ops, FP32_FLOPS),
+                       bytes=k7_bytes, library_ms=time_ms(library, 10),
+                       library_device_ms=profile_call(library, 10)[1]),
+            'int_mm': dict(device_ms=profile_call(mm, 10)[1],
+                           ms=time_ms(mm, 10), tera_ops=mm_ops / 1e12,
+                           bytes=mm_bytes,
+                           bound_ms=max(mm_ops / INT8_OPS,
+                                        mm_bytes / HBM_BYTES_PER_S) * 1e3)}
 
 
 def row_drift(got, ref):
@@ -1762,8 +1004,8 @@ def row_drift(got, ref):
 
 def int8_ab_times(engine, dev, scales, iters):
     """Server frames/s at batch 16 and blocked single-frame p50 latency,
-    bf16 and int8 in turns (bf16, int8, int8, bf16); the device-resident
-    frames of serving_times."""
+    bf16 and int8 in turns (bf16, int8, int8, bf16), on 16 seeded frames
+    already on the card."""
     h, w = FRAME[:2]
     gen = torch.Generator(device=dev).manual_seed(3)
     frames = torch.randint(0, 256, (16, *FRAME), dtype=torch.uint8,
@@ -1879,9 +1121,9 @@ def int8_path(dev, wrappers, frames_np, iters):
                                                   ._pipeline_batch(
                                                       frames, h, w), 10)))
         serving = int8_ab_times(engine, dev, scales, max(iters // 2, 1))
-        k6 = {k: v for k, v in times['K6'].items() if k != 'conv_routes'}
         print(f'{name} serving batch 16 bf16 / int8: {serving}; per call '
-              f'{profile}; K6 {k6}; K7 {times["K7"]}; _int_mm '
+              f'{profile}; K6 {times["K6"]["err"]} from its plain version '
+              f'over {len(calls)} served convs; K7 {times["K7"]}; _int_mm '
               f'{times["int_mm"]}')
         out[name] = dict(scales=[len(s) for s in scales], drift=drift,
                          times=times, profile=profile, serving=serving,
@@ -2117,16 +1359,6 @@ def eval_against_plain(dev, parts, batch, wrappers):
                 mean_iou=float(sums[2].sum() / counts.sum()),
                 mean_add=float(sums[0].sum() / counts.sum()),
                 launches_iou=n_iou, launches_no_iou=n_none)
-
-
-def device_events(prof):
-    """The profile's kernels, copies and fills on the card: not the
-    device-side ranges of ``record_function`` annotations (the optimizer's
-    ``step`` and ``zero_grad``), which span other events and would count
-    their time again."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, 'is_user_annotation', False)]
 
 
 def train_times(parts, batch, gen):
@@ -3281,67 +2513,6 @@ def dp_config(sgd=True):
     return cfg
 
 
-def group_config(port, world, rank):
-    from tpudet3d_torch.core.config import AttrDict
-    return AttrDict(data_parallel=dict(
-        use_parallel=True, coordinator_address=f'127.0.0.1:{port}',
-        num_processes=world, process_id=rank))
-
-
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
-def group_main(rank, world, port, device, backend, work, args, out):
-    """One process of a local group of ``world``: joins it through
-    ``backend`` on ``device`` (``{rank}`` stands for the rank), runs
-    ``work(dev, world, rank, *args)`` and saves what it returns to ``out``
-    (``{rank}`` likewise)."""
-    from tpudet3d_torch.parallel import sharding
-    dev = sharding.maybe_init_distributed(group_config(port, world, rank),
-                                          device.format(rank=rank),
-                                          backend=backend)
-    try:
-        torch.save(work(dev, world, rank, *args), out.format(rank=rank))
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def spawn_group(world, backend, device, work, args, tmp, timeout):
-    """Each rank's result of ``work`` (a module-level function, see
-    :func:`group_main`) in a group of ``world`` spawned processes; fails
-    when a process fails or outlives ``timeout`` seconds, and leaves none
-    running.  ``device``: ``'cuda:0'`` for gloo on one card (NCCL refuses
-    two ranks on one device), ``'cuda:{rank}'`` for nccl, ``'cpu'``."""
-    import os
-    ctx = torch.multiprocessing.get_context('spawn')
-    port = free_port()
-    out = os.path.join(str(tmp), f'group_{world}_{{rank}}.pt')
-    procs = [ctx.Process(target=group_main,
-                         args=(r, world, port, device, backend, work,
-                               tuple(args), out))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.time() + timeout
-    try:
-        for p in procs:
-            p.join(max(deadline - time.time(), 1.0))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    codes = [p.exitcode for p in procs]
-    expect(codes == [0] * world, f'{backend} group of {world}: processes '
-           f'exited {codes}')
-    return [torch.load(out.format(rank=r), weights_only=False)
-            for r in range(world)]
-
-
 def overlapping_evaluator(state, eval_step, cfg, dev, n, seed,
                           parts=(slice(None),)):
     """An ``Evaluator`` with the IoU over DP_VAL_BATCHES batches of ``n``,
@@ -3506,25 +2677,6 @@ def dp_step_times(state, step, rows, gen):
     return dict(reg_step_ms=sorted(times)[len(times) // 2],
                 reg_profile={k: prof[k] for k in ('busy_ms', 'launches',
                                                   'wall_ms', 'groups')})
-
-
-def max_leaf_err(a, b):
-    """Largest leaf-wise |a - b| / max(|b|, 1e-3) (JAX's bound's measure)
-    and its leaf."""
-    return max((float(((a[k].double() - b[k].double()).abs()
-                       / b[k].double().abs().clamp(min=1e-3)).max()), k)
-               for k in b)
-
-
-def update_err(a, b, start, keys=None):
-    """|Δa − Δb| / |Δb| over the tensors ``keys`` (all), Δ the move from
-    ``start``: the distance of two updates, whatever the learning rate."""
-    keys = list(b) if keys is None else keys
-    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
-              for k in keys)
-    den = sum(float(((b[k].double() - start[k].double()) ** 2).sum())
-              for k in keys)
-    return (num / max(den, 1e-300)) ** 0.5
 
 
 def dp_validation(dev, parts, cfg, wrappers):
@@ -3992,510 +3144,26 @@ def parallel_path(dev, wrappers, frames_np, plain, norm, gpu):
 # and int8 product route (tests/fixtures/torch_port_golden, written by
 # tests/torch_port_golden.py): every input remade from its manifest
 GOLDEN_ROOT = 'tests/fixtures/torch_port_golden'
-# reported, not gated: the free-running engine's rows (random weights
-# leave the detector's top scores on a plateau, where JAX's own bf16 and
-# float32 rows part; trained heads part them further,
-# tests/torch_port_heads_probe.py), the port's calibration on its own
-# detections
-# (crops of other boxes where the rows part), and JAX's calibration with
-# its crops in float32 beside its own in bf16 (the size of that cast)
-GOLDEN_REPORTED = ('rows', 'scales', 'jax_f32_crops_vs_bf16_crops')
-
-
-def golden_inputs(manifest):
-    """The frames, remade and checked against the manifest's digest."""
-    from tpudet3d_torch.utils import golden
-    fr = manifest['frames']
-    frames = golden.golden_frames(fr['n'], fr['h'], fr['w'], fr['seed'])
-    expect(golden.digest(frames) == fr['sha256'],
-           'the golden frames are not remade bit for bit')
-    return frames
-
-
-def golden_variables(spec, arrays):
-    """A model's Flax-named numpy variables, remade with the record's
-    calibrated statistics and checked."""
-    from tpudet3d_torch.utils import golden
-    v = golden.remake_variables(spec['leaves'], spec['seed'],
-                                arrays[spec['stats']])
-    expect(golden.tree_digest(v) == spec['sha256'],
-           f'the golden weights of {spec["source"]} are not remade bit '
-           'for bit')
-    return v
-
-
-def golden_module(spec, dtype, arrays):
-    """The port's module of a manifest model, float32 parameters, compute
-    in ``dtype``, the remade weights loaded."""
-    from tpudet3d_torch.core import AttrDict
-    from tpudet3d_torch.detect import SSDDetector
-    from tpudet3d_torch.models import build_model
-    from tpudet3d_torch.utils.convert import load_jax_variables
-    if spec['kind'] == 'detector':
-        module = SSDDetector(num_classes=9, width_mult=spec['width_mult'],
-                             dtype=dtype, cascade=spec['cascade'])
-    else:
-        module = build_model(AttrDict(model=dict(
-            name=spec['name'], num_classes=9, bf16=False)), dtype=dtype)
-    return load_jax_variables(module, golden_variables(spec, arrays))
-
-
-def golden_engine(manifest, arrays, case, dev, scales=None):
-    from tpudet3d_torch.infer import EngineConfig, TwoStageEngine
-    s = manifest['serving'][case]
-    kw = dict(manifest['engine'], crop_size=tuple(
-        manifest['engine']['crop_size']), expand_ratio=tuple(
-        manifest['engine']['expand_ratio']))
-    if scales is not None:
-        kw.update(det_int8_scales=scales['det'], reg_int8_scales=scales['reg'])
-    models = manifest['models']
-    return TwoStageEngine(
-        golden_module(models[s['detector']], torch.bfloat16, arrays).eval(),
-        golden_module(models[s['regressor']], torch.bfloat16,
-                      arrays).eval(),
-        EngineConfig(**kw), device=dev)
-
-
-def golden_dets(engine, logits, deltas, ref, wrappers):
-    """K3 through the engine's decode settings on JAX's detector outputs,
-    against JAX's decode of them; ``(rule, launches)``."""
-    from tpudet3d_torch.detect import decode_detections
-    from tpudet3d_torch.utils import golden
-    lg, dl = (torch.from_numpy(x).to(engine.device) for x in (logits, deltas))
-    dets, launches = drive(wrappers, lambda: decode_detections(
-        lg, dl, engine.anchors, **engine.decode_kwargs()))
-    return golden.dets_rule(dets, ref), launches
-
-
-def golden_scales_err(got, ref, ref_f32):
-    """Calibrated scales (``{'det': ..., 'reg': ...}``) against JAX's, with
-    JAX's float32 build's scales as the yardstick; ``ok`` when both stages
-    meet the rule."""
-    from tpudet3d_torch.utils import golden
-    out = {}
-    for stage in ('det', 'reg'):
-        keys = sorted(ref[stage])
-        expect(sorted(got[stage]) == keys,
-               f'calibrated {stage} convs differ from the JAX package\'s')
-        out[stage] = golden.continuous_rule(
-            [got[stage][k] for k in keys], [ref[stage][k] for k in keys],
-            [ref_f32[stage][k] for k in keys])
-        # the conv of the largest error, and the stem's (the conv that
-        # takes the model's input: first in sorted order in every model)
-        worst = max(keys, key=lambda k: abs(got[stage][k] - ref[stage][k]))
-        for name, k in (('worst', worst), ('stem', keys[0])):
-            out[stage][name] = dict(conv=k, got=got[stage][k],
-                                    jax=ref[stage][k],
-                                    jax_f32=ref_f32[stage][k])
-    out['ok'] = out['det']['ok'] and out['reg']['ok']
-    return out
-
-
-def golden_regress(engine, frames, dets, wrappers):
-    """The engine's second stage (crop boxes, refine passes, heads, K4's
-    packing) on the detections ``dets [N,max_det,6]``, as ``infer_batch``
-    unpacks it: ``(rows, launches)``."""
-    from tpudet3d_torch.infer.engine import _unpack, upload
-    n, h, w = frames.shape[:3]
-    up = upload(frames, engine.device)
-    d = torch.from_numpy(dets).to(engine.device)
-    packed, launches = drive(wrappers, lambda: engine._regress(
-        up, d, engine._crop_boxes(d, h, w, engine.cfg.crop_margin_px), h,
-        w, engine.cfg.refine_margin_px))
-    packed = packed.cpu().numpy()
-    return [_unpack(p[np.nonzero(p[:, 25] > 0)[0]]) for p in packed], \
-        launches
-
-
-def golden_serving(manifest, arrays, case, dev, wrappers, count):
-    """Cases A/B and their int8 half (C) on ``dev``: the engine's rows,
-    the detector's logits and deltas and the regressor's outputs on the
-    JAX engine's crop boxes, bf16 and int8, against the record."""
-    from tpudet3d_torch.infer.engine import upload
-    from tpudet3d_torch.infer.quant import calibrate_engine
-    from tpudet3d_torch.utils import golden
-    frames = golden_inputs(manifest)
-    n, h, w = frames.shape[:3]
-    boxes = torch.from_numpy(arrays[f'{case}/boxes']).to(dev)
-    a = {k: arrays[f'{case}/{k}'] for k in (
-        'bf16/rows', 'f32/rows', 'bf16/det_logits', 'f32/det_logits',
-        'bf16/det_deltas', 'f32/det_deltas', 'bf16/pre', 'f32/pre',
-        'bf16/cls', 'f32/cls')}
-    res, launches = {}, {}
-
-    def outputs(engine, what):
-        rows, launches[f'{case} {what} infer_batch'] = drive_replay(
-            wrappers, lambda: engine.infer_batch(frames))
-        up = upload(frames, dev)
-        (_, logits, deltas, _, _), launches[f'{case} {what} detect'] = \
-            drive(wrappers, lambda: engine._detect(
-                up, h, w, engine.cfg.crop_margin_px))
-        with torch.no_grad():
-            (pre, cls), launches[f'{case} {what} heads'] = drive(
-                wrappers, lambda: engine._heads(up, boxes))
-        return rows, logits, deltas, pre, cls
-
-    engine = golden_engine(manifest, arrays, case, dev)
-    rows, logits, deltas, pre, cls = outputs(engine, 'bf16')
-    rule = golden.continuous_rule
-    res['det_logits'] = rule(logits, a['bf16/det_logits'],
-                             a['f32/det_logits'])
-    res['det_deltas'] = rule(deltas, a['bf16/det_deltas'],
-                             a['f32/det_deltas'])
-    res['pre'] = rule(pre, a['bf16/pre'], a['f32/pre'])
-    res['cls'] = rule(cls, a['bf16/cls'], a['f32/cls'])
-    res['rows'] = golden.rows_rule(rows, golden.unpack_rows(a['bf16/rows']),
-                                   golden.unpack_rows(a['f32/rows']))
-    # K3, the engine's own decode stage, on JAX's detector outputs
-    res['dets'], launches[f'{case} bf16 decode'] = golden_dets(
-        engine, a['bf16/det_logits'], a['bf16/det_deltas'],
-        arrays[f'{case}/bf16/dets'], wrappers)
-    # the second stage on JAX's detections: every row pairs
-    dets = arrays[f'{case}/bf16/dets']
-    regress, launches[f'{case} bf16 regress'] = golden_regress(
-        engine, frames, dets, wrappers)
-    res['regress_rows'] = golden.rows_rule(
-        regress, golden.unpack_rows(arrays[f'{case}/bf16/regress_rows']),
-        golden.unpack_rows(arrays[f'{case}/f32/regress_rows']))
-
-    # int8: the port's calibration on the detections JAX's calibration
-    # cropped, against JAX's scales (gated); JAX's own with its crops in
-    # float32, as the port crops, beside them (the size of that cast) and
-    # the port's calibration on its own detections (both reported); then
-    # JAX's scales served
-    ref = manifest['int8'][case]
-    scales, launches[f'{case} calibrate'] = drive(
-        wrappers, lambda: calibrate_engine(engine, frames))
-    on_jax = calibrate_engine(engine, frames,
-                              dets=list(arrays[f'C/{case}/calib_dets']))
-    int8 = dict(scales_on_jax_dets=golden_scales_err(
-        dict(zip(('det', 'reg'), on_jax)), ref['bf16'], ref['f32']))
-    int8['jax_f32_crops_vs_bf16_crops'] = golden_scales_err(
-        ref['bf16_f32_crops'], ref['bf16'], ref['f32'])
-    int8['scales'] = golden_scales_err(dict(zip(('det', 'reg'), scales)),
-                                       ref['bf16'], ref['f32'])
-    q = golden_engine(manifest, arrays, case, dev, ref['bf16'])
-    rows8, logits8, deltas8, pre8, cls8 = outputs(q, 'int8')
-    c = {k: arrays[f'C/{case}/{k}'] for k in (
-        'rows', 'pre', 'cls', 'det_logits', 'det_deltas')}
-    int8['det_logits'] = rule(logits8, c['det_logits'],
-                              a['bf16/det_logits'])
-    int8['det_deltas'] = rule(deltas8, c['det_deltas'],
-                              a['bf16/det_deltas'])
-    int8['pre'] = rule(pre8, c['pre'], a['bf16/pre'])
-    int8['cls'] = rule(cls8, c['cls'], a['bf16/cls'])
-    int8['rows'] = golden.rows_rule(rows8, golden.unpack_rows(c['rows']),
-                                    golden.unpack_rows(a['bf16/rows']))
-    int8['dets'], launches[f'{case} int8 decode'] = golden_dets(
-        q, c['det_logits'], c['det_deltas'], arrays[f'C/{case}/dets'],
-        wrappers)
-    regress8, launches[f'{case} int8 regress'] = golden_regress(
-        q, frames, dets, wrappers)
-    int8['regress_rows'] = golden.rows_rule(
-        regress8, golden.unpack_rows(arrays[f'C/{case}/regress_rows']),
-        golden.unpack_rows(arrays[f'{case}/bf16/regress_rows']))
-    if count:
-        from tpudet3d_torch.infer import quant
-        n_det = len(quant.quantized_conv_paths(q.det_model))
-        n_reg = len(quant.quantized_conv_paths(q.reg_model))
-        with_rows = sum(len(r['scores']) > 0 for r in rows)
-        passes = int(q.cfg.refine_passes) + 1
-        want = {'bf16 infer_batch': [1, passes, 1, passes, 0, 0, 0],
-                'bf16 decode': [0, 0, 1, 0, 0, 0, 0],
-                'int8 decode': [0, 0, 1, 0, 0, 0, 0],
-                'bf16 detect': [1, 0, 1, 0, 0, 0, 0],
-                'bf16 heads': [0, 1, 0, 0, 0, 0, 0],
-                'bf16 regress': [0, passes, 0, passes, 0, 0, 0],
-                'calibrate': [n, with_rows, 1, 0, 0, 0, 0],
-                'int8 infer_batch': [1, passes, 1, passes, 0,
-                                     n_det + passes * n_reg,
-                                     n_det + passes * n_reg],
-                'int8 detect': [1, 0, 1, 0, 0, n_det, n_det],
-                'int8 heads': [0, 1, 0, 0, 0, n_reg, n_reg],
-                'int8 regress': [0, passes, 0, passes, 0, passes * n_reg,
-                                 passes * n_reg]}
-        for run, n_k in want.items():
-            expect(launches[f'{case} {run}'] == n_k,
-                   f'phase 12 {case} {run}: launches '
-                   f'{launches[f"{case} {run}"]}, the path\'s own {n_k}')
-    return res, int8, launches
-
-
-def golden_regressor_step(manifest, arrays, case, dev, wrappers, count):
-    """Case D on ``dev``: the eval step's sums with the IoU on the initial
-    state, then one train step (``tpudet3d_torch.train``) in bf16 and one
-    in float32.  Returns the rules, the launches and the port's flat
-    gradients by record key."""
-    from tpudet3d_torch.utils import golden
-    spec = manifest['train'][case]
-    mspec = manifest['models'][spec['model']]
-    items = golden.regressor_items(spec['batch'], spec['size'],
-                                   spec['items_seed'])
-    expect(golden.digest(*items) == spec['sha256'],
-           f'the items of case {case} are not remade bit for bit')
-    batch = [torch.from_numpy(x).to(dev) for x in items]
-    res, launches, grads = {}, {}, {}
-    for prec, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
-        terms, grads[f'{prec}/grad'], update, n, sums = golden_regressor_run(
-            spec, mspec, arrays, batch, dtype, dev, wrappers, prec == 'bf16')
-        launches.update({f'{case} {prec} {k}': v for k, v in n.items()})
-        if prec == 'bf16':
-            res.update(golden_step_report(arrays, case, mspec['leaves'],
-                                          spec['sketch_seed'], terms,
-                                          grads['bf16/grad'], update))
-            got = torch.stack([x.double().cpu() for x in sums]).numpy()
-            ref = arrays[f'{case}/bf16/eval']
-            ref32 = arrays[f'{case}/f32/eval']
-            res['eval'] = golden.continuous_rule(got[:3], ref[:3], ref32[:3])
-            res['eval_counts_equal'] = bool(np.array_equal(got[4], ref[4]))
-            res['eval_acc'] = dict(port=got[3].tolist(), jax=ref[3].tolist(),
-                                   jax_f32=ref32[3].tolist())
-        else:
-            res['f32_terms'] = golden.continuous_rule(
-                terms[1:4], arrays[f'{case}/f32/terms'][1:4],
-                arrays[f'{case}/f64/terms'])
-    res.update(golden_grad_rules(arrays, case, mspec['leaves'],
-                                 spec['sketch_seed'], grads))
-    if count:
-        want = {'bf16 eval': [0, 0, 0, 0, 1, 0, 0]}
-        for k, v in launches.items():
-            expect(v == want.get(k[len(case) + 1:], [0] * 7),
-                   f'phase 12 {k}: launches {v}; the path\'s own: one K5 '
-                   'in the eval step')
-    res['ok'] = bool(res['grads_ok'] and res['eval']['ok']
-                     and res['eval_counts_equal'])
-    return res, launches, grads
-
-
-def golden_regressor_run(spec, mspec, arrays, batch, dtype, dev, wrappers,
-                         evaluate):
-    """One train step of case D's regressor computing in ``dtype`` (and,
-    with ``evaluate``, the eval step before it): the loss terms, the flat
-    gradient and update (Flax layout), the launches of each call and the
-    eval step's sums."""
-    from tpudet3d_torch.core import read_py_config
-    from tpudet3d_torch.losses import LossManager, build_loss
-    from tpudet3d_torch.train import (build_optimizer, create_train_state,
-                                      make_eval_step, make_train_step)
-    from tpudet3d_torch.utils import golden
-    cfg = read_py_config(spec['config'])
-    imgs, kp, cats = batch
-    model = golden_module(mspec, dtype, arrays)
-    model.dropout_rate = spec['dropout']
-    terms = []
-
-    def recorded(fn):
-        def crit(*args):
-            out = fn(*args)
-            terms.append(out.detach())
-            return out
-        return crit
-
-    lm = LossManager(tuple([recorded(f) for f in group]
-                           for group in build_loss(cfg)), cfg.loss.coeffs,
-                     cfg.loss.alwa)
-    opt = build_optimizer(cfg, model.parameters())
-    state = create_train_state(model, opt, lm, ema_decay=0.0, device=dev)
-    launches, sums = {}, None
-    if evaluate:
-        (sums, _), launches['eval'] = drive(
-            wrappers, lambda: make_eval_step(model)(None, imgs, kp, cats,
-                                                    compute_iou=True))
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    step = make_train_step(model, lm, opt)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    (state, metrics), launches['step'] = drive(
-        wrappers, lambda: step(state, imgs, kp, cats, gen))
-    m = metrics.double().cpu()
-    got_terms = torch.cat([m[:1], torch.stack(terms).double().cpu(),
-                           m[1:3]]).numpy()
-    named = dict(model.named_parameters())
-    leaves = mspec['leaves']
-    return (got_terms,
-            golden.flax_vector({k: p.grad for k, p in named.items()},
-                               leaves),
-            golden.flax_vector({k: p.detach() - before[k]
-                                for k, p in named.items()}, leaves),
-            launches, sums)
-
-
-def golden_detector_step(manifest, arrays, case, dev, wrappers, count):
-    """Case E on ``dev``: one bf16 step of ``tpudet3d_torch.detect.train``
-    (reported), then the float32 training forward and the gradient of the
-    port's loss on JAX's float32 forward outputs carried back through the
-    float32 network (gated).  Returns the rules, the launches and the
-    port's flat gradients by record key."""
-    from tpudet3d_torch.core import read_py_config
-    from tpudet3d_torch.detect.train import (create_detector_state,
-                                             make_detector_train_step)
-    from tpudet3d_torch.utils import golden
-    spec = manifest['train'][case]
-    mspec = manifest['models'][spec['model']]
-    cfg = read_py_config(spec['config'])
-    items = golden.detector_items(spec['batch'], spec['size'],
-                                  spec['boxes'], spec['items_seed'])
-    expect(golden.digest(*items) == spec['sha256'],
-           f'the items of case {case} are not remade bit for bit')
-    imgs, boxes, labels, valid = (torch.from_numpy(x).to(dev)
-                                  for x in items)
-    model = golden_module(mspec, torch.bfloat16, arrays)
-    state = create_detector_state(model, lr=spec['lr'],
-                                  momentum=float(cfg.optim.momentum),
-                                  wd=float(cfg.optim.wd), device=dev)
-    loss = spec['loss']
-    step = make_detector_train_step(
-        state.model, state.optimizer, use_balance=loss['loss_balancing'],
-        input_size=spec['size'], giou_weight=loss['giou_weight'],
-        cascade_pos_thr=loss['cascade_pos_thr'])
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    (state, metrics), n_step = drive(
-        wrappers, lambda: step(state, imgs, boxes, labels, valid))
-    named = dict(model.named_parameters())
-    leaves = mspec['leaves']
-    grads = {'bf16/grad': golden.flax_vector(
-        {k: p.grad for k, p in named.items()}, leaves)}
-    res = golden_step_report(
-        arrays, case, leaves, spec['sketch_seed'], metrics.double().cpu(),
-        grads['bf16/grad'], golden.flax_vector(
-            {k: p.detach() - before[k] for k, p in named.items()}, leaves))
-    fwd, terms, grads['f32/fixed_grad'], n_fixed = golden_detector_fixed(
-        spec, mspec, arrays, case, (imgs, boxes, labels, valid), dev,
-        wrappers)
-    res['f32_forward'] = fwd
-    res['f32_fixed_terms'] = golden.continuous_rule(
-        terms, arrays[f'{case}/f32/fixed_terms'],
-        arrays[f'{case}/f64/fixed_terms'])
-    res.update(golden_grad_rules(arrays, case, leaves, spec['sketch_seed'],
-                                 grads))
-    launches = {f'{case} bf16 step': n_step, f'{case} f32 fixed': n_fixed}
-    if count:
-        for k, v in launches.items():
-            expect(v == [0] * 7, f'phase 12 {k}: launches {v}, none on the '
-                                 'path')
-    res['ok'] = bool(res['grads_ok'] and fwd['ok'])
-    return res, launches, grads
-
-
-def golden_detector_fixed(spec, mspec, arrays, case, batch, dev, wrappers):
-    """Case E's float32 gates: the training forward's outputs against
-    JAX's, and the gradient of the port's ``ssd_loss`` taken on JAX's
-    float32 forward outputs (so that the mined negatives and the
-    cascade's re-assignment are those of one input) carried back through
-    the port's float32 network.  Returns the forward's rule, the loss
-    terms on JAX's outputs, the flat gradient and the launches."""
-    from tpudet3d_torch.detect.anchors import generate_anchors
-    from tpudet3d_torch.detect.losses import ssd_loss
-    from tpudet3d_torch.utils import golden
-    imgs, boxes, labels, valid = batch
-    model = golden_module(mspec, torch.float32, arrays).to(dev)
-    model.train()
-    names = ('logits', 'deltas', 'deltas2')
-    jax_outs = [torch.from_numpy(arrays[f'{case}/f32/fwd_{k}']).to(dev)
-                .requires_grad_() for k in names]
-    anchors = torch.from_numpy(generate_anchors(spec['size'])).to(dev)
-    loss = spec['loss']
-    total, parts = ssd_loss(
-        jax_outs[0], jax_outs[1], anchors, boxes, labels, valid,
-        cascade_deltas=jax_outs[2], giou_weight=loss['giou_weight'],
-        cascade_pos_thr=loss['cascade_pos_thr'])
-    ct = torch.autograd.grad(total, jax_outs)
-    terms = torch.stack([total, parts['cls_loss'], parts['reg_loss'],
-                         parts['num_pos']]).detach().double().cpu().numpy()
-    params = dict(model.named_parameters())
-
-    def backward():
-        logits, (deltas, deltas2) = model(imgs, train=True)
-        outs = (logits, deltas, deltas2)
-        return outs, torch.autograd.grad(outs, list(params.values()), ct,
-                                         allow_unused=True)
-
-    (outs, g), launches = drive(wrappers, backward)
-    fwd = {k: golden.continuous_rule(
-        o, arrays[f'{case}/f32/fwd_{k}'], arrays[f'{case}/f64/fwd_{k}'])
-        for k, o in zip(names, outs)}
-    fwd['ok'] = all(v['ok'] for v in fwd.values())
-    g = {k: (x if x is not None else torch.zeros_like(p))
-         for (k, p), x in zip(params.items(), g)}
-    return fwd, terms, golden.flax_vector(g, mspec['leaves']), launches
-
-
-# the gated gradients of cases D and E; each is held against JAX's with
-# JAX's next precision as its yardstick.  Case E's bf16 gradient is
-# reported: JAX's own bf16 gradient lies further from its float32 one
-# than the gradient's length, so the rule would pass a zero gradient
-GOLDEN_GATED_GRADS = {'D': ('bf16/grad', 'f32/grad'),
-                      'E': ('f32/fixed_grad',)}
-GOLDEN_NEXT = {'bf16': 'f32', 'f32': 'f64'}
-
-
-def golden_grad_rules(arrays, case, leaves, sketch_seed, grads):
-    """The sketch rule of each gradient in ``grads`` (record key such as
-    ``'f32/grad'`` → the port's flat vector in the Flax layout) against
-    JAX's, with JAX's next precision as its yardstick; ``grads_ok`` over
-    those :data:`GOLDEN_GATED_GRADS` names."""
-    from tpudet3d_torch.utils import golden
-    n = next(iter(grads.values())).size
-    hashed = golden.sketch_hash(n, sketch_seed)
-    out = {}
-    for key, vec in grads.items():
-        prec, name = key.split('/')
-        out[key] = golden.sketch_rule(
-            golden.count_sketch(vec, hashed),
-            arrays[f'{case}/{prec}/{name}_sketch'],
-            arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_sketch'])
-        p = golden.leaf_norms(vec, leaves)
-        j = arrays[f'{case}/{prec}/{name}_norms']
-        j_ref = arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_norms']
-        excess = np.abs(p - j) / (np.abs(j - j_ref) + golden.SLACK * j
-                                  + 1e-30)
-        out[key]['leaf_excess'] = float(excess.max())
-    out['grads_ok'] = all(out[k]['ok'] for k in GOLDEN_GATED_GRADS[case]
-                          if k in out)
-    return out
-
-
-def golden_step_report(arrays, case, leaves, sketch_seed, terms, grad,
-                       update):
-    """The bf16 step's loss terms under the continuous rule and its
-    update's sketch under the sketch rule, reported.  The terms are four
-    to six scalars, each yardstick one draw of JAX's bf16 noise, which can
-    land near 0 by chance; Adam's sign rule makes the update noisier than
-    the gradient."""
-    from tpudet3d_torch.utils import golden
-    hashed = golden.sketch_hash(grad.size, sketch_seed)
-    ref = {p: {k: arrays[f'{case}/{p}/{k}'] for k in (
-        'terms', 'update_sketch', 'update_norms')} for p in ('bf16', 'f32')}
-    res = dict(terms=golden.continuous_rule(terms, ref['bf16']['terms'],
-                                            ref['f32']['terms']),
-               update=golden.sketch_rule(golden.count_sketch(update, hashed),
-                                         ref['bf16']['update_sketch'],
-                                         ref['f32']['update_sketch']))
-    p = golden.leaf_norms(update, leaves)
-    j, j32 = ref['bf16']['update_norms'], ref['f32']['update_norms']
-    excess = np.abs(p - j) / (np.abs(j - j32) + golden.SLACK * j + 1e-30)
-    res['update_leaf_excess'] = float(excess.max())
-    return res
 
 
 def golden_path(dev, wrappers, root=GOLDEN_ROOT):
     """Phase 12: cases A-E of the golden record on ``dev``.  Prints one JSON
     line of every value's error beside its yardstick; fatal on any miss.
     On the card each run's launches must be the path's own."""
-    from tpudet3d_torch.utils import golden
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     count = dev.type == 'cuda'
     manifest, arrays = golden.load_golden(root)
     out = dict(serving={}, int8={}, train={}, launches={})
     for case in sorted(manifest['serving']):
-        res, int8, launches = golden_serving(manifest, arrays, case, dev,
-                                             wrappers, count)
+        res, int8, launches = golden.golden_serving(manifest, arrays, case,
+                                                    dev, wrappers, count)
         out['serving'][case], out['int8'][case] = res, int8
         out['launches'].update(launches)
     for case in sorted(manifest['train']):
-        fn = (golden_regressor_step
+        fn = (golden.golden_regressor_step
               if manifest['train'][case]['kind'] == 'regressor'
-              else golden_detector_step)
+              else golden.golden_detector_step)
         out['train'][case], launches, _ = fn(manifest, arrays, case, dev,
                                              wrappers, count)
         out['launches'].update(launches)
@@ -4503,7 +3171,7 @@ def golden_path(dev, wrappers, root=GOLDEN_ROOT):
     for group in ('serving', 'int8'):
         for case, res in out[group].items():
             misses += [f'{group} {case} {k}' for k, v in res.items()
-                       if k not in GOLDEN_REPORTED and not v['ok']]
+                       if k not in golden.GOLDEN_REPORTED and not v['ok']]
     misses += [f'train {case}' for case, res in out['train'].items()
                if not res['ok']]
     out['misses'] = misses
@@ -4835,7 +3503,8 @@ def dp_cards(world, out_path):
 
 
 def run(dev, out_path, iters=20):
-    """All phases on ``dev``; ``iters`` calls per serving timing loop."""
+    """All phases on ``dev``; ``iters`` sets the timing loops of phase
+    7's bf16 and int8 serving (half as many calls each)."""
     from tpudet3d_torch.detect import (decode_detections,
                                        decode_detections_plain)
     from tpudet3d_torch.infer import build_engine
@@ -4845,8 +3514,7 @@ def run(dev, out_path, iters=20):
     from tpudet3d_torch.kernels.build import build, library
     from tpudet3d_torch.ops import box3d
     from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
-                                    resize_bilinear, resize_bilinear_plain,
-                                    resize_weights)
+                                    resize_bilinear, resize_bilinear_plain)
     from tpudet3d_torch.ops import quant as qops
     iou = box3d.iou_oriented_boxes
     int8_wrappers = (qops.quantize_input, qops.rescale)
@@ -4873,16 +3541,15 @@ def run(dev, out_path, iters=20):
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randint(0, 256, (16, *FRAME), dtype=torch.uint8,
                            device=dev, generator=gen)
-    k1 = check_k1(dev, frames, (resize_bilinear, resize_bilinear_plain,
-                                resize_weights))
+    k1 = check_k1(dev, frames, (resize_bilinear, resize_bilinear_plain))
     k2 = check_k2(dev, (crop_and_resize, crop_and_resize_plain), norm)
     from tpudet3d_torch.detect import generate_anchors
     anchors = torch.from_numpy(generate_anchors()).to(dev)
     k3 = check_k3(dev, (decode_detections, decode_detections_plain),
                   anchors)
     k4 = check_k4(dev, (head_epilogue, head_epilogue_plain))
-    k5 = check_k5(dev, (iou, box3d.iou_oriented_boxes_plain,
-                        box3d.iou_single_host), box3d)
+    k5, k5_scipy = check_k5(dev, (iou, box3d.iou_oriented_boxes_plain,
+                                  box3d.iou_single_host))
     del frames
     done('2 kernels')
 
@@ -4904,31 +3571,21 @@ def run(dev, out_path, iters=20):
         resize_bilinear_plain, crop_and_resize_plain,
         decode_detections_plain, crop_and_resize, head_epilogue,
         head_epilogue_plain), norm)
-
-    done('3 serving path')
-
-    # 4. serving times
-    times = serving_times(engine, dev, iters)
-    print(f'serving on {gpu}: ' + ', '.join(
-        f'{k} {v:.2f}' for k, v in times.items() if not k.endswith('spread')))
     del engine
-    done('4 serving times')
+    done('3 serving path')
 
     # 5. the evaluation path at full width
     evaluation = eval_path(dev, wrappers + (iou,) + int8_wrappers)
     done('5 evaluation path')
 
     # 6. the flagship EfficientNet-lite0 regressor and the cascade detector
-    # from converted snapshots: serving, 288² crops, times, the demo loop
-    # with the tracker, and the Detector wrapper
+    # from converted snapshots: serving, 288² crops, the demo loop with the
+    # tracker, and the Detector wrapper
     flagship = flagship_path(dev, wrappers + (iou,) + int8_wrappers,
                              frames_np, (
         resize_bilinear_plain, crop_and_resize_plain,
         decode_detections_plain, crop_and_resize, head_epilogue,
-        head_epilogue_plain), norm, max(iters // 2, 1))
-    el0 = flagship['serving']
-    print(f'el0 serving on {gpu}: ' + ', '.join(
-        f'{k} {v:.2f}' for k, v in el0.items() if not k.endswith('spread')))
+        head_epilogue_plain), norm)
     print(f'el0 demo loop on {gpu}: {flagship["demo"]["fps"]:.2f} frames/s '
           f'over {flagship["demo"]["frames"]} frames of 720p, assignment '
           f'route {flagship["demo"]["assignment"]}')
@@ -4993,78 +3650,44 @@ def run(dev, out_path, iters=20):
                    + [int8[m]['rows_err'] for m in ('mnv3', 'el0')])
 
     kernels = []
-    for (name, src, replaces, m, err), n, n_eval, n_el0 in zip((
+    for (name, src, replaces, err), n, n_eval, n_el0 in zip((
             ('K1 preprocess_resize', 'tpudet3d_torch/kernels/csrc/resize.cu',
-             'tpudet3d/ops/image.py:19', k1, max(k1['err'], e1)),
+             'tpudet3d/ops/image.py:19', max(k1, e1)),
             ('K2 crop_resize_normalize', 'tpudet3d_torch/kernels/csrc/crop.cu',
-             'tpudet3d/ops/image.py:87', k2, max(k2['err'], e2)),
+             'tpudet3d/ops/image.py:87', max(k2, e2)),
             ('K3 decode_nms', 'tpudet3d_torch/kernels/csrc/decode_nms.cu',
-             'tpudet3d/detect/nms.py:86', k3, max(k3['err'], e3)),
+             'tpudet3d/detect/nms.py:86', max(k3, e3)),
             ('K4 head_epilogue',
              'tpudet3d_torch/kernels/csrc/head_epilogue.cu',
-             'tpudet3d/infer/engine.py:270', k4, max(k4['err'], e4)),
+             'tpudet3d/infer/engine.py:270', max(k4, e4)),
             ('K5 iou_oriented_boxes',
              'tpudet3d_torch/kernels/csrc/box3d_iou.cu',
-             'tpudet3d/ops/box3d.py:161', k5,
-             max(k5['err'], evaluation['k5_err'])),
+             'tpudet3d/ops/box3d.py:161', max(k5, evaluation['k5_err'])),
             ('K6 quantize_input', 'tpudet3d_torch/kernels/csrc/quant.cu',
-             'tpudet3d/infer/quant.py:158', int8['mnv3']['times']['K6'],
-             int8_path_err('K6')),
+             'tpudet3d/infer/quant.py:158', int8_path_err('K6')),
             ('K7 int8_rescale', 'tpudet3d_torch/kernels/csrc/quant.cu',
-             'tpudet3d/infer/quant.py:171', int8['mnv3']['times']['K7'],
-             int8_path_err('K7'))),
+             'tpudet3d/infer/quant.py:171', int8_path_err('K7'))),
             launches + [evaluation['launches'][4]]
             + int8['launches']['mnv3'][5:],
             evaluation['launches'], runs['el0 infer_batch(16)']):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': src,
             'replaces': replaces, 'launches': n, 'max_abs_err': err,
-            'ms': m['ms'], 'plain_ms': m['plain_ms'],
-            'bound_ms': m['bound'][0], 'bound_by': m['bound'][1],
-            'library_ms': m['library_ms'], 'launches_eval': n_eval,
-            'launches_el0': n_el0})
+            'launches_eval': n_eval, 'launches_el0': n_el0})
     for i, k in enumerate(kernels):
-        k['launches_flagship'] = {run: n[i] for run, n in runs.items()}
-        k['launches_train'] = {run: n[i] for run, n in
-                               training['launches'].items()}
-        k['launches_loop'] = {run: n[i] for run, n in
-                              loop['launches'].items()}
-        k['launches_det'] = {run: n[i] for run, n in
-                             det['launches'].items()}
-        k['launches_int8'] = {name: n[i] for name, n in
-                              int8['launches'].items()}
-        k['launches_parallel'] = {name: n[i] for name, n in
-                                  parallel['launches'].items()}
-        k['launches_golden'] = {name: n[i] for name, n in
-                                golden_res['launches'].items()}
-    kernels[0].update(ms_cold=k1['ms_cold'], ms_n1=k1['ms_n1'],
-                      device_ms_n1=k1['device_ms_n1'],
-                      library_ms_cold=k1['library_ms_cold'])
-    kernels[1].update(ms_cold=k2['ms_cold'], ms_mirror=k2['ms_mirror'],
-                      ms_n1=k2['ms_n1'], device_ms=k2['device_ms'],
-                      ms_288=k2['ms_288'], device_ms_288=k2['device_ms_288'],
-                      bound_ms_288=k2['bound_ms_288'],
-                      device_ms_n1=k2['device_ms_n1'],
-                      library_ms_cold=k2['library_ms_cold'])
-    kernels[2].update(ms_soft=k3['ms_soft'], ms_vote=k3['ms_vote'],
-                      ms_n1=k3['ms_n1'], device_ms=k3['device_ms'],
-                      device_ms_n1=k3['device_ms_n1'])
-    kernels[3].update(launches_per_pass_kernel_plain=k4['launches_per_pass'],
-                      device_ms=k4['device_ms'],
-                      plain_device_ms=k4['plain_device_ms'],
-                      floor_ms=k4['floor_ms'])
-    kernels[4].update(device_ms=k5['device_ms'], ms_p8=k5['p8']['ms'],
-                      device_ms_p8=k5['p8']['device_ms'],
-                      plain_ms_p8=k5['p8']['plain_ms'],
-                      bound_ms_p8=k5['p8']['bound'][0],
-                      max_abs_err_scipy=k5['host_err'],
-                      floor_ms=k5['floor_ms'])
-    for k, key in zip(kernels[5:], ('K6', 'K7')):
-        t = int8['mnv3']['times'][key]
-        k.update(device_ms=t['device_ms'], bytes=t['bytes'],
-                 library_device_ms=t['library_device_ms'],
-                 el0=int8['el0']['times'][key])
-    kernels[5].update(routes=int8['mnv3']['times']['K6']['routes'])
+        for key, part in (('flagship', flagship), ('train', training),
+                          ('loop', loop), ('det', det), ('int8', int8),
+                          ('parallel', parallel), ('golden', golden_res)):
+            k[f'launches_{key}'] = {run: n[i] for run, n in
+                                    part['launches'].items()}
+    kernels[4]['max_abs_err_scipy'] = k5_scipy
+    kernels[5]['conv_routes'] = int8['mnv3']['times']['K6']['conv_routes']
+    t = int8['mnv3']['times']['K7']
+    kernels[6].update(
+        ms=t['ms'], device_ms=t['device_ms'], plain_ms=t['plain_ms'],
+        bound_ms=t['bound'][0], bound_by=t['bound'][1], bytes=t['bytes'],
+        library_ms=t['library_ms'], library_device_ms=t['library_device_ms'],
+        el0=int8['el0']['times']['K7'], int_mm=int8['mnv3']['times']['int_mm'])
     k8_row = {
         'name': 'K8 window_attention', 'route': 'cuda',
         'source': 'tpudet3d_torch/kernels/csrc/window_attn.cu',
@@ -5076,11 +3699,7 @@ def run(dev, out_path, iters=20):
         'library_ms': None, 'bytes': k8['bytes'], 'ops': k8['ops'],
         'shapes': k8['shapes']}
     for k in kernels:
-        lib = ('none' if k['library_ms'] is None
-               else f"{k['library_ms']:.4f} ms")
-        print(f"{k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']}), {k['launches']} launches on its main "
+        print(f"{k['name']}: {k['launches']} launches on its main "
               f"path ({k['launches_eval']} on the evaluation path, "
               f"{k['launches_el0']} on el0 infer_batch(16), "
               f"{k['launches_flagship']['demo loop']} on the demo loop, "
@@ -5105,7 +3724,7 @@ def run(dev, out_path, iters=20):
     if out_path:
         with open(out_path, 'w') as f:
             json.dump({'gpu': gpu, 'build_s': build_s, 'kernels': kernels,
-                       'serving': times, 'max_det_128': wide,
+                       'max_det_128': wide,
                        'evaluation': evaluation, 'flagship': flagship,
                        'int8': int8, 'training': training,
                        'loop': loop, 'detector_training': det,

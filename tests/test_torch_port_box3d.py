@@ -30,8 +30,8 @@ from tpudet3d.ops import geometry as jax_geometry
 
 from tpudet3d_torch.eval import metrics
 from tpudet3d_torch.ops import box3d, geometry
-from chip_smoke import (box_kps, k5_exact_cases, k5_fuzz_pairs,
-                                     rotation)
+from tpudet3d_torch.tools.cases import (box_kps, k5_exact_cases,
+                                        k5_fuzz_pairs, rotation)
 from torch_port_common import one_cpu_thread, set_no_tf32
 
 

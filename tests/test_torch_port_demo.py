@@ -46,7 +46,7 @@ from tpudet3d_torch.models import build_model
 from tpudet3d_torch.core import AttrDict
 from tpudet3d_torch.tools import demo
 from tpudet3d_torch.utils.drawing import draw_kp
-from chip_smoke import moving_frames
+from tpudet3d_torch.tools.cases import moving_frames
 from test_torch_port_engine import weights  # noqa: F401  (fixture)
 from torch_port_common import REPO, one_cpu_thread, port_of, set_no_tf32
 

@@ -71,7 +71,8 @@ from tpudet3d_torch.ops import geometry
 from tpudet3d_torch.ops.box3d import box_axes
 from test_torch_port_engine import regressor_weights
 from test_torch_port_engine import weights  # noqa: F401  (fixture)
-from chip_smoke import K4_REFINE, box_kps, k4_error, k4_inputs, rotation
+from tpudet3d_torch.tools.cases import (K4_REFINE, box_kps, k4_error,
+                                        k4_inputs, rotation)
 from torch_port_common import (config_file, one_cpu_thread, port_of,
                                set_no_tf32)
 
@@ -144,7 +145,7 @@ def test_k4_plain_matches_jax_epilogue(tta, mode):
 @pytest.mark.parametrize('tta', [False, True])
 @pytest.mark.parametrize('b', [1, 127, 129])
 def test_k4_plain_matches_jax_nan_ties(b, tta, mode):
-    """Logits with NaNs and ties (chip_smoke.K4_SPECIAL_ROWS) at the crop
+    """Logits with NaNs and ties (cases.K4_SPECIAL_ROWS) at the crop
     counts where K4's last CTA is partly live: the labels are
     jnp.argmax's (the first NaN, else the first maximum), in bf16."""
     pre, logits, boxes, dets = k4_inputs(b, tta, seed=4, nan_ties=True)
@@ -172,7 +173,7 @@ def test_k4_plain_matches_jax_nan_ties(b, tta, mode):
     (False, 6, 1e-6, True), (False, 23, 2e-6, False),
     (False, 0, 1e-6, False), (False, 24, 1.0, False)])
 def test_k4_error_tolerance(refine, col, delta, ok):
-    """chip_smoke.k4_error, the one statement of K4's tolerance that the
+    """cases.k4_error, the one statement of K4's tolerance that the
     smoke, the card tests and k4_bench share: refine boxes within 1e-4 px;
     pack keypoints (columns 6-23) within 1e-6, every other column exact."""
     ref = torch.zeros(3, 4 if refine else 26)

@@ -33,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 import torch_port_golden as gen
 from tpudet3d_torch.utils import golden
 from torch_port_common import REPO, one_cpu_thread, set_no_tf32
@@ -149,10 +148,10 @@ def test_f32_keypoints_remade_at_full_width(record):
     from tpudet3d_torch.infer.engine import upload
     manifest, arrays = record
     spec = manifest['models'][manifest['serving']['A']['regressor']]
-    reg = chip_smoke.golden_module(spec, torch.float32, arrays).eval()
+    reg = golden.golden_module(spec, torch.float32, arrays).eval()
     engine = TwoStageEngine(torch.nn.Identity(), reg, EngineConfig(
         crop_size=tuple(manifest['engine']['crop_size'])), device='cpu')
-    frames = chip_smoke.golden_inputs(manifest)[:1]
+    frames = golden.golden_inputs(manifest)[:1]
     m = arrays['A/boxes'].shape[1]
     with torch.no_grad():
         pre, cls = engine._heads(upload(frames, CPU), torch.from_numpy(
@@ -176,9 +175,9 @@ def test_cut_record_remade_in_process(cut):
     process: the calibrated statistics of every model and case A's bf16
     detector outputs."""
     manifest, arrays = cut
-    frames = chip_smoke.golden_inputs(manifest)
+    frames = golden.golden_inputs(manifest)
     for name, spec in manifest['models'].items():
-        chip_smoke.golden_variables(spec, arrays)
+        golden.golden_variables(spec, arrays)
         stats = gen.calibrated_stats(dict(spec), frames)
         np.testing.assert_array_equal(stats, arrays[spec['stats']], name)
     for case, spec in manifest['train'].items():
@@ -215,12 +214,12 @@ def test_cut_record_rebuilt(tmp_path):
 @pytest.fixture(scope='module')
 def cut_serving(cut):
     manifest, arrays = cut
-    return chip_smoke.golden_serving(manifest, arrays, 'A', CPU, (), False)
+    return golden.golden_serving(manifest, arrays, 'A', CPU, (), False)
 
 
 def _assert_ok(results):
     for k, v in results.items():
-        if k not in chip_smoke.GOLDEN_REPORTED:
+        if k not in golden.GOLDEN_REPORTED:
             assert v['ok'], (k, v)
 
 
@@ -248,8 +247,8 @@ def test_cut_calibration_keys_match_jax(cut, cut_serving):
     names the convs JAX's names."""
     from tpudet3d_torch.infer.quant import calibrate_engine
     manifest, _ = cut
-    engine = chip_smoke.golden_engine(manifest, cut[1], 'A', CPU)
-    det, reg = calibrate_engine(engine, chip_smoke.golden_inputs(manifest))
+    engine = golden.golden_engine(manifest, cut[1], 'A', CPU)
+    det, reg = calibrate_engine(engine, golden.golden_inputs(manifest))
     ref = manifest['int8']['A']['bf16']
     assert sorted(det) == sorted(ref['det'])
     assert sorted(reg) == sorted(ref['reg'])
@@ -259,15 +258,15 @@ def test_cut_calibration_keys_match_jax(cut, cut_serving):
 def cut_steps(cut):
     manifest, arrays = cut
     return {case: fn(manifest, arrays, case, CPU, (), False)
-            for case, fn in (('D', chip_smoke.golden_regressor_step),
-                             ('E', chip_smoke.golden_detector_step))}
+            for case, fn in (('D', golden.golden_regressor_step),
+                             ('E', golden.golden_detector_step))}
 
 
 @pytest.mark.parametrize('case', ['D', 'E'])
 def test_cut_train_step_meets_rules(cut, cut_steps, case):
     manifest, _ = cut
     res, _, grads = cut_steps[case]
-    for key in chip_smoke.GOLDEN_GATED_GRADS[case]:
+    for key in golden.GOLDEN_GATED_GRADS[case]:
         assert res[key]['ok'], (key, res[key])
     assert res['grads_ok'] and res['ok'], res
     assert res['terms']['n'] == len(manifest['train'][case]['terms'])
@@ -278,7 +277,7 @@ def test_cut_train_step_meets_rules(cut, cut_steps, case):
 
 @pytest.mark.parametrize('fault', ['zero', 'negated'])
 @pytest.mark.parametrize('case,key', [
-    (c, k) for c, keys in chip_smoke.GOLDEN_GATED_GRADS.items()
+    (c, k) for c, keys in golden.GOLDEN_GATED_GRADS.items()
     for k in keys])
 def test_planted_gradient_fault_fails(cut, cut_steps, case, key, fault):
     """Every gated gradient rule fails a zero and a negated gradient."""
@@ -287,8 +286,8 @@ def test_planted_gradient_fault_fails(cut, cut_steps, case, key, fault):
     bad = 0 * grad if fault == 'zero' else -grad
     spec = manifest['train'][case]
     leaves = manifest['models'][spec['model']]['leaves']
-    res = chip_smoke.golden_grad_rules(arrays, case, leaves,
-                                       spec['sketch_seed'], {key: bad})
+    res = golden.golden_grad_rules(arrays, case, leaves,
+                                   spec['sketch_seed'], {key: bad})
     assert not res[key]['ok'] and not res['grads_ok'], res[key]
 
 
@@ -383,7 +382,7 @@ def test_flax_vector_inverts_the_converter():
                             for c, path, _, _ in spec['leaves']
                             if c == 'batch_stats'])
     spec.update(sha256=golden.tree_digest(v), source='test', stats='s')
-    port = chip_smoke.golden_module(spec, torch.float32, {'s': stats})
+    port = golden.golden_module(spec, torch.float32, {'s': stats})
     got = golden.flax_vector(dict(port.named_parameters()), spec['leaves'])
     np.testing.assert_array_equal(got, gen.flat_params(v['params'],
                                                        spec['leaves']))

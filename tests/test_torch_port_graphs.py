@@ -399,7 +399,7 @@ def test_replayed_kernels_in_a_device_trace_on_card(card):
     fills one for one, K1 and K2 among them.  The tracer can lose a
     session's first events while it starts, so each session traces a
     warm-up call and throws it away (the profiler's schedule), as
-    ``chip_smoke.py`` ``traced_launches`` does."""
+    ``utils/profiling.py`` ``traced_launches`` does."""
     from torch.profiler import ProfilerActivity, profile, schedule
     engine = _card_engine('mnv3', card)
     frames = _frames(8, 720, 1280, seed=0)

@@ -108,6 +108,30 @@ def test_source_names_no_jax_import():
     assert not bad, bad
 
 
+def test_package_tools_import_no_card_smoke(tmp_path):
+    """The card smoke (``chip_smoke.py`` at the repo root) is a leaf: the
+    cases, the golden record's support and every kernel tool import from
+    the package alone, from any directory, with only the repo root on
+    the path."""
+    import glob
+    tools = sorted(os.path.basename(f)[:-3] for f in glob.glob(os.path.join(
+        REPO, 'tpudet3d_torch', 'tools', 'k*_bench.py')))
+    assert tools, 'no kernel tool found'
+    modules = ['tpudet3d_torch.tools.cases', 'tpudet3d_torch.utils.golden'] \
+        + [f'tpudet3d_torch.tools.{t}' for t in tools]
+    code = textwrap.dedent(f'''
+        import importlib, sys
+        for name in {modules!r}:
+            importlib.import_module(name)
+        assert 'chip_smoke' not in sys.modules, 'chip_smoke was imported'
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_golden_support_imports_numpy_and_torch_only():
     """``utils/golden.py`` remakes the golden record's inputs on a machine
     without JAX: its imports are the standard library, numpy, torch and

@@ -5,23 +5,22 @@ machine with the card it runs without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
 Tolerances: K1 f32 1e-5 and bf16 2^-8 (values in [0, 1]), on every shape
-the port feeds it (chip_smoke.K1_CASES); K2 f32 1e-4 and bf16 2^-7 + 1e-4
+the port feeds it (cases.K1_CASES); K2 f32 1e-4 and bf16 2^-7 + 1e-4
 (normalised values, fused multiply-adds in the kernel), on the box and
-frame cases of chip_smoke.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
+frame cases of cases.K2_CASES; K3 scores 1e-6 and boxes 1e-3 px (only
 the box-vote sums are ordered differently); K4 kp 1e-6, boxes 1e-4 px,
 labels exact, also at the crop counts and on the logits with NaNs and ties
-of chip_smoke.K4_CASES; K5 1e-5 (kernel and plain version compute the same
+of cases.K4_CASES; K5 1e-5 (kernel and plain version compute the same
 float32 operations in the same order); K6 and K7 bit for bit on
-chip_smoke.K6_CASES (each on its route) and K7_CASES, torch._int_mm equal
+cases.K6_CASES (each on its route) and K7_CASES, torch._int_mm equal
 to the exact product, and the int8 conv through the kernels equal to it
 through the plain versions.
 
 The K1 shapes, the K2, K3, K6 and K7 cases and the K4 and K5 inputs come
-from
-chip_smoke.py, so these
-tests, the card smoke and the CPU parity tests (tests/test_torch_port_eval.py,
-tests/test_torch_port_box3d.py) check the same cases.  Run from the repo
-root, which puts chip_smoke.py on the import path.
+from ``tpudet3d_torch/tools/cases.py``, so these tests, the card smoke
+(``chip_smoke.py``), the kernel tools and the CPU parity tests
+(tests/test_torch_port_eval.py, tests/test_torch_port_box3d.py) check the
+same cases.
 """
 
 import pytest
@@ -36,11 +35,11 @@ from tpudet3d_torch.ops import (crop_and_resize, crop_and_resize_plain,
 from tpudet3d_torch.ops.box3d import (iou_oriented_boxes,
                                       iou_oriented_boxes_plain)
 from tpudet3d_torch.ops import quant as qops
-from chip_smoke import (K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES,
-                        K4_CASES, K4_REFINE, K6_CASES, K7_CASES, compare_k4,
-                        k1_frames, k2_case, k3_case, k4_inputs, k5_exact_cases,
-                        k5_fuzz_pairs, k6_input, k6_plan, k6_route,
-                        k7_input, plain_quant)
+from tpudet3d_torch.tools.cases import (
+    K1_CASES, K1_TOLS, K2_CASES, K2_TOLS, K3_CASES, K4_CASES, K4_REFINE,
+    K6_CASES, K7_CASES, compare_k4, k1_frames, k2_case, k3_case, k4_inputs,
+    k5_exact_cases, k5_fuzz_pairs, k6_input, k6_plan, k6_route, k7_input,
+    plain_quant)
 from torch_port_inputs import assert_dets_match, frame_batch, random_boxes
 
 

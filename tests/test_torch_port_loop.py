@@ -72,7 +72,7 @@ from tpudet3d_torch.utils.checkpoint import (load_converted,
                                              load_pretrained_weights,
                                              resume_from, save_snap)
 from tpudet3d_torch.utils.convert import jax_to_state_dict, load_jax_variables
-from chip_smoke import projected_box_keypoints
+from tpudet3d_torch.tools.cases import projected_box_keypoints
 from torch_port_common import (REPO, config_file, flax_init, one_cpu_thread,
                                perturb, set_no_tf32)
 

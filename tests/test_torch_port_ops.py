@@ -55,8 +55,8 @@ from tpudet3d_torch.ops.image import (K1_COL_ALIGN, K2_BANDS, K2_RUN,
                                       resize_footprint, resize_plan,
                                       resize_windows, staged_ranges)
 from tpudet3d_torch.tools.k2_bench import phase_copies
-from tpudet3d_torch.tools.k3_bench import SETTINGS as K3_SETTINGS
-from chip_smoke import K1_CASES, K2_CASES, K3_CASES, k2_case, k3_case
+from tpudet3d_torch.tools.cases import (K1_CASES, K2_CASES, K3_CASES,
+                                        K3_SETTINGS, k2_case, k3_case)
 from torch_port_common import one_cpu_thread, set_no_tf32
 from torch_port_inputs import (assert_dets_match, det_inputs,
                                frame_batch, random_boxes)

@@ -11,8 +11,8 @@ leaf-wise relative error of 5e-2 (SGD, whose update is linear in the
 gradient), the detector's losses over its steps within rtol 5e-2.  Mining
 and assignment are discrete, so the detector's parameters are held as a
 whole: the update's distance within 5e-2 of the update's norm.  The processes are spawned and
-joined with a timeout by ``chip_smoke.spawn_group``, which phase 11 of
-``chip_smoke.py`` uses on the card; their work is in
+joined with a timeout by ``tpudet3d_torch.parallel.spawn_group``, which
+phase 11 of ``chip_smoke.py`` uses on the card; their work is in
 ``tests/torch_port_parallel_worker.py``.
 """
 
@@ -24,7 +24,8 @@ import pytest
 import torch
 
 import torch_port_parallel_worker as worker
-from chip_smoke import projected_box_keypoints, spawn_group, update_err
+from tpudet3d_torch.parallel import spawn_group
+from tpudet3d_torch.tools.cases import projected_box_keypoints, update_err
 from torch_port_common import flax_init, one_cpu_thread, perturb
 
 from tpudet3d import losses as jax_losses

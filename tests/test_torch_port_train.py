@@ -73,7 +73,7 @@ from tpudet3d_torch.train import (build_optimizer, build_scheduler,
                                   make_train_step, param_count,
                                   set_learning_rate)
 from tpudet3d_torch.utils.convert import jax_to_state_dict, load_jax_variables
-from chip_smoke import projected_box_keypoints
+from tpudet3d_torch.tools.cases import projected_box_keypoints
 from torch_port_common import flax_init, one_cpu_thread, perturb, set_no_tf32
 
 # a cut MobileNetV3-large: stride-1 and stride-2 blocks, 3×3 and 5×5

@@ -1,8 +1,8 @@
 """Work of the port's data-parallel tests, run alike in each process of a
 ``gloo`` group on the CPU and, with no group, in the test's own process
 (tests/test_torch_port_parallel.py).  Imports no JAX: the test hands the
-weights and batches over in files under ``tmpdir``, and ``chip_smoke``'s
-``spawn_group`` brings each rank's results back.
+weights and batches over in files under ``tmpdir``, and
+``tpudet3d_torch.parallel.spawn_group`` brings each rank's results back.
 
 Each task feeds this process the rows ``rank::world`` of one global batch,
 as the port's loader does.
@@ -209,7 +209,7 @@ TASKS = {'regressor': regressor, 'regressor_plain': regressor_plain,
 
 def run(dev, world, rank, tmpdir, tasks):
     """The work of one process of a ``world``-process gloo group on the
-    CPU (``chip_smoke.group_main`` joins the group): each task of
+    CPU (``sharding.group_main`` joins the group): each task of
     ``tasks`` in turn."""
     torch.set_num_threads(1)
     assert sharding.world() == world and sharding.rank() == rank

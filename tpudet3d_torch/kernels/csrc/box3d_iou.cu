@@ -8,9 +8,9 @@
 // Bound on the H100: the launch plus one round trip to memory and a chain
 // of dependent steps, not bytes.  A pair reads 216 bytes and needs about
 // 4 kflop (7 per clip visit of a valid vertex, 12 per crossing, 15 per
-// fan triangle, ~1 k of set-up; chip_smoke.py's k5_work counts them on
-// the data); at P = 128 that is 28 KB (8 ns at 3.35 TB/s) and 0.5 Mflop
-// (7 ns at 67 TFLOP/s f32), and the protocol calls it on at most 8 pairs
+// fan triangle, ~1 k of set-up, counted on random pairs through the
+// plain version); at P = 128 that is 28 KB (8 ns at 3.35 TB/s) and 0.5
+// Mflop (7 ns at 67 TFLOP/s f32), and the protocol calls it on at most 8 pairs
 // of one example.  What is left is the depth of the chain: set-up, six
 // clip passes, the fan and the sums.
 //

@@ -22,6 +22,12 @@ Every collective is an ``all_reduce`` (a gather is a sum into zeros), the
 one collective both ``nccl`` and ``gloo`` carry for tensors on the card.
 Without a group, or with a group of one process, every function here is
 the identity and the single-device path is unchanged.
+
+``spawn_group`` starts a local group of processes on this host, each
+joined through ``maybe_init_distributed``, runs one function in each and
+brings every rank's result back: the CPU tests run it with ``gloo`` and
+the card smoke (``chip_smoke.py``) with ``gloo`` on one card or ``nccl``
+on several.
 """
 
 import os
@@ -34,7 +40,8 @@ __all__ = ['maybe_init_distributed', 'group_line', 'world', 'rank',
            'is_main_process',
            'group_device', 'local_batch', 'local_batch_slice', 'local_rows',
            'all_reduce_sum', 'all_reduce_mean', 'global_mean', 'gather_rows',
-           'barrier']
+           'barrier', 'free_port', 'group_config', 'group_main',
+           'spawn_group']
 
 _DEVICE = None      # the device this process's collectives run on
 
@@ -244,3 +251,67 @@ def barrier():
             dist.barrier(device_ids=[torch.cuda.current_device()])
         else:
             dist.barrier()
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that no socket holds now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def group_config(port, world, rank):
+    """The ``data_parallel`` config of rank ``rank`` of a local group of
+    ``world`` processes meeting at 127.0.0.1:``port``."""
+    from ..core.config import AttrDict
+    return AttrDict(data_parallel=dict(
+        use_parallel=True, coordinator_address=f'127.0.0.1:{port}',
+        num_processes=world, process_id=rank))
+
+
+def group_main(rank, world, port, device, backend, work, args, out):
+    """One process of a local group of ``world``: joins it through
+    ``backend`` on ``device`` (``{rank}`` stands for the rank), runs
+    ``work(dev, world, rank, *args)`` and saves what it returns to ``out``
+    (``{rank}`` likewise)."""
+    dev = maybe_init_distributed(group_config(port, world, rank),
+                                 device.format(rank=rank), backend=backend)
+    try:
+        torch.save(work(dev, world, rank, *args), out.format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_group(world, backend, device, work, args, tmp, timeout):
+    """Each rank's result of ``work`` (a module-level function, see
+    :func:`group_main`) in a group of ``world`` spawned processes; fails
+    when a process fails or outlives ``timeout`` seconds, and leaves none
+    running.  ``device``: ``'cuda:0'`` for gloo on one card (NCCL refuses
+    two ranks on one device), ``'cuda:{rank}'`` for nccl, ``'cpu'``.  The
+    processes import ``work``'s module afresh."""
+    import time
+    ctx = torch.multiprocessing.get_context('spawn')
+    port = free_port()
+    out = os.path.join(str(tmp), f'group_{world}_{{rank}}.pt')
+    procs = [ctx.Process(target=group_main,
+                         args=(r, world, port, device, backend, work,
+                               tuple(args), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f'{backend} group of {world}: processes exited '
+                           f'{codes}')
+    return [torch.load(out.format(rank=r), weights_only=False)
+            for r in range(world)]

@@ -23,24 +23,12 @@ import sys
 
 import torch
 
-FRAME = (720, 1280, 3)
+if not __package__:     # run as a script: the package is two levels up
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+from tpudet3d_torch.tools.cases import FRAME, cycle_ms  # noqa: E402
+
 OUT_HW = (300, 300)
-
-
-def cycle_ms(fns, iters):
-    """Mean device time per call over ``iters`` calls that cycle through
-    ``fns`` (CUDA events, after one warm-up call of each)."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, calls=50):

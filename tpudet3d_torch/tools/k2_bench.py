@@ -29,31 +29,20 @@ Otherwise it needs CUDA.
 import os
 import sys
 
-import numpy as np
 import torch
 
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
+from tpudet3d_torch.tools.cases import (FRAME, cycle_ms,  # noqa: E402
+                                        engine_like_boxes)
 from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
-                                           cycle_ms, device_ms, gpu_line,
-                                           use_tree, write_copies)
+                                           device_ms, gpu_line, use_tree,
+                                           write_copies)
 
-FRAME = (720, 1280, 3)
 N, K = 16, 8
 OUT_HW = (224, 224)
 BANDS = (1, 2, 4, 8, 16)
-
-
-def engine_like_boxes(n, k, h, w, seed):
-    """Boxes as the serving path makes them: inside the frame, some on its
-    edges, some thinner than a pixel."""
-    rng = np.random.RandomState(seed)
-    x0 = rng.uniform(-40, w, (n, k))
-    y0 = rng.uniform(-40, h, (n, k))
-    b = np.stack([x0, y0, x0 + rng.uniform(0.2, w / 2, (n, k)),
-                  y0 + rng.uniform(0.2, h / 2, (n, k))], -1)
-    return np.clip(b, 0, [w, h, w, h]).astype(np.float32)
 
 
 def serving_inputs(dev):

@@ -23,69 +23,32 @@ import json
 import os
 import sys
 
-import numpy as np
 import torch
 
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from tpudet3d_torch.tools.k1_bench import (cycle_ms, device_ms,  # noqa: E402
-                                           gpu_line, run_trees, use_tree)
+from tpudet3d_torch.tools.cases import (K3_BASE, K3_SETTINGS,  # noqa: E402
+                                        cycle_ms, det_batch)
+from tpudet3d_torch.tools.k1_bench import (device_ms, gpu_line,  # noqa: E402
+                                           run_trees, use_tree)
 
-N, A, C = 16, 2044, 9
-BASE = dict(score_thr=0.02, iou_thr=0.45, max_per_img=8, pre_nms_k=32)
-SETTINGS = {'greedy': {},
-            'soft': dict(soft_nms_sigma=0.5, soft_nms_dup_iou=0.75),
-            'vote': dict(box_vote_iou=0.6)}
-# the split's sweep at N=16, each on top of BASE
+N = 16
+# the split's sweep at N=16, each on top of K3_BASE
 SPLIT = (('K=1 max_det 1', dict(pre_nms_k=1, max_per_img=1)),
          ('K=8', dict(pre_nms_k=8)), ('K=16', dict(pre_nms_k=16)),
          ('K=32', {}), ('K=64', dict(pre_nms_k=64)),
          ('K=128', dict(pre_nms_k=128)),
          ('K=32 max_det 1', dict(max_per_img=1)),
-         ('soft', SETTINGS['soft']), ('vote', SETTINGS['vote']))
-# the large K of max_detections 128 and 511 at N=16, on top of BASE; a tree
-# whose wrapper refuses a K records None for it
+         ('soft', K3_SETTINGS['soft']), ('vote', K3_SETTINGS['vote']))
+# the large K of max_detections 128 and 511 at N=16, on top of K3_BASE; a
+# tree whose wrapper refuses a K records None for it
 LARGE = (('K=512 max_det 128', dict(pre_nms_k=512, max_per_img=128)),
          ('K=512 max_det 128 soft', dict(pre_nms_k=512, max_per_img=128,
-                                         **SETTINGS['soft'])),
+                                         **K3_SETTINGS['soft'])),
          ('K=2044 max_det 511', dict(pre_nms_k=2044, max_per_img=511)),
          ('K=2044 max_det 511 vote', dict(pre_nms_k=2044, max_per_img=511,
-                                          **SETTINGS['vote'])))
-
-
-def det_batch(n, kind='random', seed=2):
-    """Detector logits ``[n,A,C+1]`` and deltas ``[n,A,4]`` as numpy.
-
-    ``random``: logits N(0, 2²), anchors 100–139 a copy of anchor 99 (exact
-    score ties); ``sparse``: background-dominant, as a trained detector's
-    (the background logit, the last, 8; classes N(0, 1.5²)), so that only
-    a few anchors per class clear a 0.02 floor; ``ties``: sparse, plus for
-    each class c ten anchors with a distinct high score and a run of 40
-    anchors with one equal score just below them, so that the run
-    straddles the 32nd place.
-    """
-    rng = np.random.RandomState(seed)
-    deltas = (rng.standard_normal((n, A, 4)) * 0.5).astype(np.float32)
-    if kind == 'random':
-        logits = rng.standard_normal((n, A, C + 1)) * 2.0
-        logits[:, 100:140] = logits[:, 99:100]
-    elif kind in ('sparse', 'ties'):
-        logits = rng.standard_normal((n, A, C + 1)) * 1.5
-        logits[..., C] = 8.0
-        if kind == 'ties':
-            for c in range(C):
-                top = slice(200 * c, 200 * c + 10)
-                logits[:, top] = -2.0
-                logits[:, top, C] = 0.0
-                logits[:, top, c] = 5.0 + rng.uniform(0, 1, (n, 10))
-                run = slice(200 * c + 20, 200 * c + 60)
-                logits[:, run] = -2.0
-                logits[:, run, C] = 0.0
-                logits[:, run, c] = 4.0
-    else:
-        raise ValueError(f'unknown kind {kind!r}')
-    return logits.astype(np.float32), deltas
+                                          **K3_SETTINGS['vote'])))
 
 
 def det_err(out, ref):
@@ -132,10 +95,10 @@ def k3_times(decode, logits, deltas, anchors):
     """``decode`` (a K3 wrapper) on batch ``logits``/``deltas``: ms back to
     back in each setting, at N=1, and on the device at N=16 and N=1."""
     def call(n, setting='greedy'):
-        kw = dict(BASE, **SETTINGS[setting])
+        kw = dict(K3_BASE, **K3_SETTINGS[setting])
         return lambda: decode(logits[:n], deltas[:n], anchors, **kw)
     out = {f'ms_{s}': cycle_ms([call(len(logits), s)], 200)
-           for s in SETTINGS}
+           for s in K3_SETTINGS}
     out.update(ms_n1=cycle_ms([call(1)], 200),
                device_ms=device_ms(call(len(logits))),
                device_ms_n1=device_ms(call(1)))
@@ -156,16 +119,17 @@ def run_tree(tree):
     logits, deltas = (torch.from_numpy(x).to(dev) for x in det_batch(N))
     anchors = torch.from_numpy(generate_anchors()).to(dev)
     err = 0.0
-    for setting in SETTINGS:
-        kw = dict(BASE, **SETTINGS[setting])
+    for setting in K3_SETTINGS:
+        kw = dict(K3_BASE, **K3_SETTINGS[setting])
         err = max(err, det_err(
             decode_detections(logits, deltas, anchors, **kw),
             decode_detections_plain(logits, deltas, anchors, **kw)))
-    split = {name: kernel_split(lambda kw=dict(BASE, **kw): decode_detections(
-        logits, deltas, anchors, **kw)) for name, kw in SPLIT}
+    split = {name: kernel_split(
+        lambda kw=dict(K3_BASE, **kw): decode_detections(
+            logits, deltas, anchors, **kw)) for name, kw in SPLIT}
     large = {}
     for name, kw in LARGE:
-        kw = dict(BASE, **kw)
+        kw = dict(K3_BASE, **kw)
         try:
             err = max(err, det_err(
                 decode_detections(logits, deltas, anchors, **kw),

@@ -4,12 +4,12 @@ packed rows [B,26] or the next pass's boxes [B,4].
 
     python tpudet3d_torch/tools/k4_bench.py [--trees DIR ...] [--out FILE]
 
-Checks the kernel against its plain version (on chip_smoke.py's inputs,
-with and without NaNs and ties in the logits), then times it at B=128
-(a serving pass: 16 frames × 8 crops) and B=8, in pack and refine mode,
-with TTA off and on: back to back (CUDA events; the host's dispatch
-through ctypes may set it) and on the device (``torch.profiler``).  In the
-same process it times the launch floor, the device time of an add on one
+Checks the kernel against its plain version (on ``tools/cases.py``'s
+inputs, with and without NaNs and ties in the logits), then times it at
+B=128 (a serving pass: 16 frames × 8 crops) and B=8, in pack and refine
+mode, with TTA off and on: back to back (CUDA events; the host's dispatch
+through ctypes may set it) and on the device (``torch.profiler``).  In
+the same process it times the launch floor, the device time of an add on one
 float.  With ``--trees``, each DIR's own ``tpudet3d_torch``, its kernels
 built from its own sources, is timed in a process of its own, in the order
 given (``--trees parent . . parent`` compares two checkouts in turns);
@@ -27,9 +27,10 @@ import torch
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from chip_smoke import K4_REFINE, k4_error, k4_inputs  # noqa: E402
+from tpudet3d_torch.tools.cases import (K4_REFINE, cycle_ms,  # noqa: E402
+                                        k4_error, k4_inputs)
 from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
-                                           cycle_ms, device_ms, gpu_line,
+                                           device_ms, gpu_line,
                                            launch_floor_ms, use_tree)
 
 # (B, mode, TTA); the first is the serving path's last pass

@@ -3,9 +3,9 @@ Objectron 9-keypoint boxes, f32 [P,9,3] x 2 -> [P].
 
     python tpudet3d_torch/tools/k5_bench.py [--trees DIR ...] [--out FILE]
 
-Checks the kernel against its plain version (chip_smoke.py's random pairs
-at every P timed, and its exact cases), then times it at P=8 (the most
-one example of the evaluation protocol sends) and P=128 (a batch of the
+Checks the kernel against its plain version (``tools/cases.py``'s random
+pairs at every P timed, and its exact cases), then times it at P=8 (the
+most one example of the evaluation protocol sends) and P=128 (a batch of the
 metrics, ``eval/metrics.py``), back to back (CUDA events; the host's
 dispatch through ctypes may set it) and on the device
 (``torch.profiler``).  In the same process it times the launch floor, the
@@ -27,9 +27,10 @@ import torch
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from chip_smoke import k5_exact_cases, k5_fuzz_pairs  # noqa: E402
+from tpudet3d_torch.tools.cases import (cycle_ms,  # noqa: E402
+                                        k5_exact_cases, k5_fuzz_pairs)
 from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
-                                           cycle_ms, device_ms, gpu_line,
+                                           device_ms, gpu_line,
                                            launch_floor_ms, use_tree)
 
 PAIRS = (8, 128)

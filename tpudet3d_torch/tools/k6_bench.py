@@ -4,11 +4,12 @@ int8 conv of a MNv3 and an el0 ``infer_batch(16)`` call of 720p frames.
     python tpudet3d_torch/tools/k6_bench.py [--trees DIR ...] [--out FILE]
 
 Builds the default engine (MNv2-SSD-300 + MNv3-large-21k) and the el0
-engine of ``chip_smoke.py`` phase 7 (seeded snapshots), calibrates each
-with ``calibrate_engine`` on 16 frames and records every int8 conv of one
-eager ``_pipeline_batch(16)`` call on the uploaded frames, the path that
-``infer_batch`` graphs (``chip_smoke.recording_int8_convs``).  Checks
-K6 against its plain version bit for bit on each, then times it on the
+engine of ``chip_smoke.py`` phase 7 (the seeded snapshots of
+``cases.write_snapshots``), calibrates each with ``calibrate_engine`` on
+16 frames and records every int8 conv of one eager
+``_pipeline_batch(16)`` call on the uploaded frames, the path that
+``infer_batch`` graphs (``cases.recording_int8_convs``).  Checks K6
+against its plain version bit for bit on each, then times it on the
 device (``torch.profiler``) and back to back (CUDA events), summed over
 the call and split into the stems (k×k), the unpadded 1×1 convs (C = Kp)
 and the padded ones (C < Kp), each with its bytes (every input read
@@ -37,10 +38,11 @@ import torch
 if not __package__:     # run as a script: the package is two levels up
     sys.path.append(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-from chip_smoke import (EL0_CONFIG, FRAME, HBM_BYTES_PER_S,  # noqa: E402
-                        recording_int8_convs, write_snapshots)
+from tpudet3d_torch.tools.cases import (  # noqa: E402
+    EL0_CONFIG, FRAME, HBM_BYTES_PER_S, cycle_ms, recording_int8_convs,
+    write_snapshots)
 from tpudet3d_torch.tools.k1_bench import (bench_main,  # noqa: E402
-                                           cycle_ms, device_ms, gpu_line,
+                                           device_ms, gpu_line,
                                            launch_floor_ms, use_tree)
 
 L2_BYTES = 50e6

@@ -46,8 +46,15 @@ roundings of one result part by about √2·y, hence the factor 2
   features carry their spatial signal at 33–48 times JAX's own bf16
   noise, and heads that separate the rectangles amplify both.
 
-This module is testing support: it imports numpy and torch and nothing of
-JAX or of the JAX package.
+The drivers run the record's cases on a device and apply the rules:
+:func:`golden_serving` (cases A and B, bf16, and their int8 half C),
+:func:`golden_regressor_step` (D) and :func:`golden_detector_step` (E),
+each returning its rules and each run's kernel launches
+(``utils/profiling.py`` ``drive``).  ``chip_smoke.py`` phase 12 runs them
+on the card and ``tests/test_torch_port_golden.py`` on the CPU.
+
+This module is testing support: it imports numpy, torch and the port's
+own modules, and nothing of JAX or of the JAX package.
 """
 
 import hashlib
@@ -57,13 +64,21 @@ import os.path as osp
 import numpy as np
 import torch
 
+from .profiling import drive, drive_replay
+
 __all__ = ['FACTOR', 'SLACK', 'MATCH_IOU', 'MATCH_SHARE', 'BUCKETS',
            'VAR_FLOOR', 'FIXTURE', 'load_golden', 'digest', 'tree_digest',
            'leaf_kind', 'draw_leaf', 'remake_variables', 'golden_frames',
            'golden_boxes', 'regressor_items', 'detector_items', 'sketch_hash',
            'count_sketch', 'flax_vector', 'leaf_norms', 'bf16_ulp',
            'continuous_rule', 'sketch_rule', 'match_rows', 'rows_rule',
-           'dets_rule', 'pack_rows', 'unpack_rows']
+           'dets_rule', 'pack_rows', 'unpack_rows', 'GOLDEN_REPORTED',
+           'GOLDEN_GATED_GRADS', 'GOLDEN_NEXT', 'golden_inputs',
+           'golden_variables', 'golden_module', 'golden_engine',
+           'golden_dets', 'golden_scales_err', 'golden_regress',
+           'golden_serving', 'golden_regressor_step', 'golden_regressor_run',
+           'golden_detector_step', 'golden_detector_fixed',
+           'golden_grad_rules', 'golden_step_report']
 
 FACTOR = 2.0          # the port within twice JAX's own bf16 noise
 SLACK = 0.01          # of the reference's sketch norm (gradients)
@@ -502,4 +517,488 @@ def dets_rule(port, ref, share=MATCH_SHARE):
                within_ulp=bool(np.all(err <= bf16_ulp(r))))
     res['ok'] = bool(n_rows > 0 and n_paired >= share * n_rows
                      and labels_equal and res['within_ulp'])
+    return res
+
+
+# The record's cases driven on a device (``chip_smoke.py`` phase 12 on the
+# card, tests/test_torch_port_golden.py on the CPU): each remakes its
+# inputs, runs the port, and holds each output by the rules above.  On the
+# card, ``count`` also holds each run's kernel launches to the path's own.
+
+# reported, not gated: the free-running engine's rows (random weights
+# leave the detector's top scores on a plateau, where JAX's own bf16 and
+# float32 rows part; trained heads part them further,
+# tests/torch_port_heads_probe.py), the port's calibration on its own
+# detections (crops of other boxes where the rows part), and JAX's
+# calibration with its crops in float32 beside its own in bf16 (the size
+# of that cast)
+GOLDEN_REPORTED = ('rows', 'scales', 'jax_f32_crops_vs_bf16_crops')
+
+
+def golden_inputs(manifest):
+    """The frames, remade and checked against the manifest's digest."""
+    fr = manifest['frames']
+    frames = golden_frames(fr['n'], fr['h'], fr['w'], fr['seed'])
+    if digest(frames) != fr['sha256']:
+        raise RuntimeError('the golden frames are not remade bit for bit')
+    return frames
+
+
+def golden_variables(spec, arrays):
+    """A model's Flax-named numpy variables, remade with the record's
+    calibrated statistics and checked."""
+    v = remake_variables(spec['leaves'], spec['seed'],
+                                arrays[spec['stats']])
+    if tree_digest(v) != spec['sha256']:
+        raise RuntimeError(f'the golden weights of {spec["source"]} are not '
+                           'remade bit for bit')
+    return v
+
+
+def golden_module(spec, dtype, arrays):
+    """The port's module of a manifest model, float32 parameters, compute
+    in ``dtype``, the remade weights loaded."""
+    from ..core import AttrDict
+    from ..detect import SSDDetector
+    from ..models import build_model
+    from .convert import load_jax_variables
+    if spec['kind'] == 'detector':
+        module = SSDDetector(num_classes=9, width_mult=spec['width_mult'],
+                             dtype=dtype, cascade=spec['cascade'])
+    else:
+        module = build_model(AttrDict(model=dict(
+            name=spec['name'], num_classes=9, bf16=False)), dtype=dtype)
+    return load_jax_variables(module, golden_variables(spec, arrays))
+
+
+def golden_engine(manifest, arrays, case, dev, scales=None):
+    from ..infer import EngineConfig, TwoStageEngine
+    s = manifest['serving'][case]
+    kw = dict(manifest['engine'], crop_size=tuple(
+        manifest['engine']['crop_size']), expand_ratio=tuple(
+        manifest['engine']['expand_ratio']))
+    if scales is not None:
+        kw.update(det_int8_scales=scales['det'], reg_int8_scales=scales['reg'])
+    models = manifest['models']
+    return TwoStageEngine(
+        golden_module(models[s['detector']], torch.bfloat16, arrays).eval(),
+        golden_module(models[s['regressor']], torch.bfloat16,
+                      arrays).eval(),
+        EngineConfig(**kw), device=dev)
+
+
+def golden_dets(engine, logits, deltas, ref, wrappers):
+    """K3 through the engine's decode settings on JAX's detector outputs,
+    against JAX's decode of them; ``(rule, launches)``."""
+    from ..detect import decode_detections
+    lg, dl = (torch.from_numpy(x).to(engine.device) for x in (logits, deltas))
+    dets, launches = drive(wrappers, lambda: decode_detections(
+        lg, dl, engine.anchors, **engine.decode_kwargs()))
+    return dets_rule(dets, ref), launches
+
+
+def golden_scales_err(got, ref, ref_f32):
+    """Calibrated scales (``{'det': ..., 'reg': ...}``) against JAX's, with
+    JAX's float32 build's scales as the yardstick; ``ok`` when both stages
+    meet the rule."""
+    out = {}
+    for stage in ('det', 'reg'):
+        keys = sorted(ref[stage])
+        if sorted(got[stage]) != keys:
+            raise RuntimeError(f'calibrated {stage} convs differ from the '
+                               'JAX package\'s')
+        out[stage] = continuous_rule(
+            [got[stage][k] for k in keys], [ref[stage][k] for k in keys],
+            [ref_f32[stage][k] for k in keys])
+        # the conv of the largest error, and the stem's (the conv that
+        # takes the model's input: first in sorted order in every model)
+        worst = max(keys, key=lambda k: abs(got[stage][k] - ref[stage][k]))
+        for name, k in (('worst', worst), ('stem', keys[0])):
+            out[stage][name] = dict(conv=k, got=got[stage][k],
+                                    jax=ref[stage][k],
+                                    jax_f32=ref_f32[stage][k])
+    out['ok'] = out['det']['ok'] and out['reg']['ok']
+    return out
+
+
+def golden_regress(engine, frames, dets, wrappers):
+    """The engine's second stage (crop boxes, refine passes, heads, K4's
+    packing) on the detections ``dets [N,max_det,6]``, as ``infer_batch``
+    unpacks it: ``(rows, launches)``."""
+    from ..infer.engine import _unpack, upload
+    n, h, w = frames.shape[:3]
+    up = upload(frames, engine.device)
+    d = torch.from_numpy(dets).to(engine.device)
+    packed, launches = drive(wrappers, lambda: engine._regress(
+        up, d, engine._crop_boxes(d, h, w, engine.cfg.crop_margin_px), h,
+        w, engine.cfg.refine_margin_px))
+    packed = packed.cpu().numpy()
+    return [_unpack(p[np.nonzero(p[:, 25] > 0)[0]]) for p in packed], \
+        launches
+
+
+def golden_serving(manifest, arrays, case, dev, wrappers, count):
+    """Cases A/B and their int8 half (C) on ``dev``: the engine's rows,
+    the detector's logits and deltas and the regressor's outputs on the
+    JAX engine's crop boxes, bf16 and int8, against the record."""
+    from ..infer.engine import upload
+    from ..infer.quant import calibrate_engine
+    frames = golden_inputs(manifest)
+    n, h, w = frames.shape[:3]
+    boxes = torch.from_numpy(arrays[f'{case}/boxes']).to(dev)
+    a = {k: arrays[f'{case}/{k}'] for k in (
+        'bf16/rows', 'f32/rows', 'bf16/det_logits', 'f32/det_logits',
+        'bf16/det_deltas', 'f32/det_deltas', 'bf16/pre', 'f32/pre',
+        'bf16/cls', 'f32/cls')}
+    res, launches = {}, {}
+
+    def outputs(engine, what):
+        rows, launches[f'{case} {what} infer_batch'] = drive_replay(
+            wrappers, lambda: engine.infer_batch(frames))
+        up = upload(frames, dev)
+        (_, logits, deltas, _, _), launches[f'{case} {what} detect'] = \
+            drive(wrappers, lambda: engine._detect(
+                up, h, w, engine.cfg.crop_margin_px))
+        with torch.no_grad():
+            (pre, cls), launches[f'{case} {what} heads'] = drive(
+                wrappers, lambda: engine._heads(up, boxes))
+        return rows, logits, deltas, pre, cls
+
+    engine = golden_engine(manifest, arrays, case, dev)
+    rows, logits, deltas, pre, cls = outputs(engine, 'bf16')
+    rule = continuous_rule
+    res['det_logits'] = rule(logits, a['bf16/det_logits'],
+                             a['f32/det_logits'])
+    res['det_deltas'] = rule(deltas, a['bf16/det_deltas'],
+                             a['f32/det_deltas'])
+    res['pre'] = rule(pre, a['bf16/pre'], a['f32/pre'])
+    res['cls'] = rule(cls, a['bf16/cls'], a['f32/cls'])
+    res['rows'] = rows_rule(rows, unpack_rows(a['bf16/rows']),
+                                   unpack_rows(a['f32/rows']))
+    # K3, the engine's own decode stage, on JAX's detector outputs
+    res['dets'], launches[f'{case} bf16 decode'] = golden_dets(
+        engine, a['bf16/det_logits'], a['bf16/det_deltas'],
+        arrays[f'{case}/bf16/dets'], wrappers)
+    # the second stage on JAX's detections: every row pairs
+    dets = arrays[f'{case}/bf16/dets']
+    regress, launches[f'{case} bf16 regress'] = golden_regress(
+        engine, frames, dets, wrappers)
+    res['regress_rows'] = rows_rule(
+        regress, unpack_rows(arrays[f'{case}/bf16/regress_rows']),
+        unpack_rows(arrays[f'{case}/f32/regress_rows']))
+
+    # int8: the port's calibration on the detections JAX's calibration
+    # cropped, against JAX's scales (gated); JAX's own with its crops in
+    # float32, as the port crops, beside them (the size of that cast) and
+    # the port's calibration on its own detections (both reported); then
+    # JAX's scales served
+    ref = manifest['int8'][case]
+    scales, launches[f'{case} calibrate'] = drive(
+        wrappers, lambda: calibrate_engine(engine, frames))
+    on_jax = calibrate_engine(engine, frames,
+                              dets=list(arrays[f'C/{case}/calib_dets']))
+    int8 = dict(scales_on_jax_dets=golden_scales_err(
+        dict(zip(('det', 'reg'), on_jax)), ref['bf16'], ref['f32']))
+    int8['jax_f32_crops_vs_bf16_crops'] = golden_scales_err(
+        ref['bf16_f32_crops'], ref['bf16'], ref['f32'])
+    int8['scales'] = golden_scales_err(dict(zip(('det', 'reg'), scales)),
+                                       ref['bf16'], ref['f32'])
+    q = golden_engine(manifest, arrays, case, dev, ref['bf16'])
+    rows8, logits8, deltas8, pre8, cls8 = outputs(q, 'int8')
+    c = {k: arrays[f'C/{case}/{k}'] for k in (
+        'rows', 'pre', 'cls', 'det_logits', 'det_deltas')}
+    int8['det_logits'] = rule(logits8, c['det_logits'],
+                              a['bf16/det_logits'])
+    int8['det_deltas'] = rule(deltas8, c['det_deltas'],
+                              a['bf16/det_deltas'])
+    int8['pre'] = rule(pre8, c['pre'], a['bf16/pre'])
+    int8['cls'] = rule(cls8, c['cls'], a['bf16/cls'])
+    int8['rows'] = rows_rule(rows8, unpack_rows(c['rows']),
+                                    unpack_rows(a['bf16/rows']))
+    int8['dets'], launches[f'{case} int8 decode'] = golden_dets(
+        q, c['det_logits'], c['det_deltas'], arrays[f'C/{case}/dets'],
+        wrappers)
+    regress8, launches[f'{case} int8 regress'] = golden_regress(
+        q, frames, dets, wrappers)
+    int8['regress_rows'] = rows_rule(
+        regress8, unpack_rows(arrays[f'C/{case}/regress_rows']),
+        unpack_rows(arrays[f'{case}/bf16/regress_rows']))
+    if count:
+        from ..infer import quant
+        n_det = len(quant.quantized_conv_paths(q.det_model))
+        n_reg = len(quant.quantized_conv_paths(q.reg_model))
+        with_rows = sum(len(r['scores']) > 0 for r in rows)
+        passes = int(q.cfg.refine_passes) + 1
+        want = {'bf16 infer_batch': [1, passes, 1, passes, 0, 0, 0],
+                'bf16 decode': [0, 0, 1, 0, 0, 0, 0],
+                'int8 decode': [0, 0, 1, 0, 0, 0, 0],
+                'bf16 detect': [1, 0, 1, 0, 0, 0, 0],
+                'bf16 heads': [0, 1, 0, 0, 0, 0, 0],
+                'bf16 regress': [0, passes, 0, passes, 0, 0, 0],
+                'calibrate': [n, with_rows, 1, 0, 0, 0, 0],
+                'int8 infer_batch': [1, passes, 1, passes, 0,
+                                     n_det + passes * n_reg,
+                                     n_det + passes * n_reg],
+                'int8 detect': [1, 0, 1, 0, 0, n_det, n_det],
+                'int8 heads': [0, 1, 0, 0, 0, n_reg, n_reg],
+                'int8 regress': [0, passes, 0, passes, 0, passes * n_reg,
+                                 passes * n_reg]}
+        for run, n_k in want.items():
+            if launches[f'{case} {run}'] != n_k:
+                raise RuntimeError(f'phase 12 {case} {run}: launches '
+                                   f'{launches[f"{case} {run}"]}, the '
+                                   f'path\'s own {n_k}')
+    return res, int8, launches
+
+
+def golden_regressor_step(manifest, arrays, case, dev, wrappers, count):
+    """Case D on ``dev``: the eval step's sums with the IoU on the initial
+    state, then one train step (``tpudet3d_torch.train``) in bf16 and one
+    in float32.  Returns the rules, the launches and the port's flat
+    gradients by record key."""
+    spec = manifest['train'][case]
+    mspec = manifest['models'][spec['model']]
+    items = regressor_items(spec['batch'], spec['size'],
+                                   spec['items_seed'])
+    if digest(*items) != spec['sha256']:
+        raise RuntimeError(f'the items of case {case} are not remade bit '
+                           'for bit')
+    batch = [torch.from_numpy(x).to(dev) for x in items]
+    res, launches, grads = {}, {}, {}
+    for prec, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        terms, grads[f'{prec}/grad'], update, n, sums = golden_regressor_run(
+            spec, mspec, arrays, batch, dtype, dev, wrappers, prec == 'bf16')
+        launches.update({f'{case} {prec} {k}': v for k, v in n.items()})
+        if prec == 'bf16':
+            res.update(golden_step_report(arrays, case, mspec['leaves'],
+                                          spec['sketch_seed'], terms,
+                                          grads['bf16/grad'], update))
+            got = torch.stack([x.double().cpu() for x in sums]).numpy()
+            ref = arrays[f'{case}/bf16/eval']
+            ref32 = arrays[f'{case}/f32/eval']
+            res['eval'] = continuous_rule(got[:3], ref[:3], ref32[:3])
+            res['eval_counts_equal'] = bool(np.array_equal(got[4], ref[4]))
+            res['eval_acc'] = dict(port=got[3].tolist(), jax=ref[3].tolist(),
+                                   jax_f32=ref32[3].tolist())
+        else:
+            res['f32_terms'] = continuous_rule(
+                terms[1:4], arrays[f'{case}/f32/terms'][1:4],
+                arrays[f'{case}/f64/terms'])
+    res.update(golden_grad_rules(arrays, case, mspec['leaves'],
+                                 spec['sketch_seed'], grads))
+    if count:
+        want = {'bf16 eval': [0, 0, 0, 0, 1, 0, 0]}
+        for k, v in launches.items():
+            if v != want.get(k[len(case) + 1:], [0] * 7):
+                raise RuntimeError(f'phase 12 {k}: launches {v}; the '
+                                   'path\'s own: one K5 in the eval step')
+    res['ok'] = bool(res['grads_ok'] and res['eval']['ok']
+                     and res['eval_counts_equal'])
+    return res, launches, grads
+
+
+def golden_regressor_run(spec, mspec, arrays, batch, dtype, dev, wrappers,
+                         evaluate):
+    """One train step of case D's regressor computing in ``dtype`` (and,
+    with ``evaluate``, the eval step before it): the loss terms, the flat
+    gradient and update (Flax layout), the launches of each call and the
+    eval step's sums."""
+    from ..core import read_py_config
+    from ..losses import LossManager, build_loss
+    from ..train import (build_optimizer, create_train_state,
+                         make_eval_step, make_train_step)
+    cfg = read_py_config(spec['config'])
+    imgs, kp, cats = batch
+    model = golden_module(mspec, dtype, arrays)
+    model.dropout_rate = spec['dropout']
+    terms = []
+
+    def recorded(fn):
+        def crit(*args):
+            out = fn(*args)
+            terms.append(out.detach())
+            return out
+        return crit
+
+    lm = LossManager(tuple([recorded(f) for f in group]
+                           for group in build_loss(cfg)), cfg.loss.coeffs,
+                     cfg.loss.alwa)
+    opt = build_optimizer(cfg, model.parameters())
+    state = create_train_state(model, opt, lm, ema_decay=0.0, device=dev)
+    launches, sums = {}, None
+    if evaluate:
+        (sums, _), launches['eval'] = drive(
+            wrappers, lambda: make_eval_step(model)(None, imgs, kp, cats,
+                                                    compute_iou=True))
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = make_train_step(model, lm, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (state, metrics), launches['step'] = drive(
+        wrappers, lambda: step(state, imgs, kp, cats, gen))
+    m = metrics.double().cpu()
+    got_terms = torch.cat([m[:1], torch.stack(terms).double().cpu(),
+                           m[1:3]]).numpy()
+    named = dict(model.named_parameters())
+    leaves = mspec['leaves']
+    return (got_terms,
+            flax_vector({k: p.grad for k, p in named.items()},
+                               leaves),
+            flax_vector({k: p.detach() - before[k]
+                                for k, p in named.items()}, leaves),
+            launches, sums)
+
+
+def golden_detector_step(manifest, arrays, case, dev, wrappers, count):
+    """Case E on ``dev``: one bf16 step of ``tpudet3d_torch.detect.train``
+    (reported), then the float32 training forward and the gradient of the
+    port's loss on JAX's float32 forward outputs carried back through the
+    float32 network (gated).  Returns the rules, the launches and the
+    port's flat gradients by record key."""
+    from ..core import read_py_config
+    from ..detect.train import (create_detector_state,
+                                make_detector_train_step)
+    spec = manifest['train'][case]
+    mspec = manifest['models'][spec['model']]
+    cfg = read_py_config(spec['config'])
+    items = detector_items(spec['batch'], spec['size'],
+                                  spec['boxes'], spec['items_seed'])
+    if digest(*items) != spec['sha256']:
+        raise RuntimeError(f'the items of case {case} are not remade bit '
+                           'for bit')
+    imgs, boxes, labels, valid = (torch.from_numpy(x).to(dev)
+                                  for x in items)
+    model = golden_module(mspec, torch.bfloat16, arrays)
+    state = create_detector_state(model, lr=spec['lr'],
+                                  momentum=float(cfg.optim.momentum),
+                                  wd=float(cfg.optim.wd), device=dev)
+    loss = spec['loss']
+    step = make_detector_train_step(
+        state.model, state.optimizer, use_balance=loss['loss_balancing'],
+        input_size=spec['size'], giou_weight=loss['giou_weight'],
+        cascade_pos_thr=loss['cascade_pos_thr'])
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    (state, metrics), n_step = drive(
+        wrappers, lambda: step(state, imgs, boxes, labels, valid))
+    named = dict(model.named_parameters())
+    leaves = mspec['leaves']
+    grads = {'bf16/grad': flax_vector(
+        {k: p.grad for k, p in named.items()}, leaves)}
+    res = golden_step_report(
+        arrays, case, leaves, spec['sketch_seed'], metrics.double().cpu(),
+        grads['bf16/grad'], flax_vector(
+            {k: p.detach() - before[k] for k, p in named.items()}, leaves))
+    fwd, terms, grads['f32/fixed_grad'], n_fixed = golden_detector_fixed(
+        spec, mspec, arrays, case, (imgs, boxes, labels, valid), dev,
+        wrappers)
+    res['f32_forward'] = fwd
+    res['f32_fixed_terms'] = continuous_rule(
+        terms, arrays[f'{case}/f32/fixed_terms'],
+        arrays[f'{case}/f64/fixed_terms'])
+    res.update(golden_grad_rules(arrays, case, leaves, spec['sketch_seed'],
+                                 grads))
+    launches = {f'{case} bf16 step': n_step, f'{case} f32 fixed': n_fixed}
+    if count:
+        for k, v in launches.items():
+            if v != [0] * 7:
+                raise RuntimeError(f'phase 12 {k}: launches {v}, none on '
+                                   'the path')
+    res['ok'] = bool(res['grads_ok'] and fwd['ok'])
+    return res, launches, grads
+
+
+def golden_detector_fixed(spec, mspec, arrays, case, batch, dev, wrappers):
+    """Case E's float32 gates: the training forward's outputs against
+    JAX's, and the gradient of the port's ``ssd_loss`` taken on JAX's
+    float32 forward outputs (so that the mined negatives and the
+    cascade's re-assignment are those of one input) carried back through
+    the port's float32 network.  Returns the forward's rule, the loss
+    terms on JAX's outputs, the flat gradient and the launches."""
+    from ..detect.anchors import generate_anchors
+    from ..detect.losses import ssd_loss
+    imgs, boxes, labels, valid = batch
+    model = golden_module(mspec, torch.float32, arrays).to(dev)
+    model.train()
+    names = ('logits', 'deltas', 'deltas2')
+    jax_outs = [torch.from_numpy(arrays[f'{case}/f32/fwd_{k}']).to(dev)
+                .requires_grad_() for k in names]
+    anchors = torch.from_numpy(generate_anchors(spec['size'])).to(dev)
+    loss = spec['loss']
+    total, parts = ssd_loss(
+        jax_outs[0], jax_outs[1], anchors, boxes, labels, valid,
+        cascade_deltas=jax_outs[2], giou_weight=loss['giou_weight'],
+        cascade_pos_thr=loss['cascade_pos_thr'])
+    ct = torch.autograd.grad(total, jax_outs)
+    terms = torch.stack([total, parts['cls_loss'], parts['reg_loss'],
+                         parts['num_pos']]).detach().double().cpu().numpy()
+    params = dict(model.named_parameters())
+
+    def backward():
+        logits, (deltas, deltas2) = model(imgs, train=True)
+        outs = (logits, deltas, deltas2)
+        return outs, torch.autograd.grad(outs, list(params.values()), ct,
+                                         allow_unused=True)
+
+    (outs, g), launches = drive(wrappers, backward)
+    fwd = {k: continuous_rule(
+        o, arrays[f'{case}/f32/fwd_{k}'], arrays[f'{case}/f64/fwd_{k}'])
+        for k, o in zip(names, outs)}
+    fwd['ok'] = all(v['ok'] for v in fwd.values())
+    g = {k: (x if x is not None else torch.zeros_like(p))
+         for (k, p), x in zip(params.items(), g)}
+    return fwd, terms, flax_vector(g, mspec['leaves']), launches
+
+
+# the gated gradients of cases D and E; each is held against JAX's with
+# JAX's next precision as its yardstick.  Case E's bf16 gradient is
+# reported: JAX's own bf16 gradient lies further from its float32 one
+# than the gradient's length, so the rule would pass a zero gradient
+GOLDEN_GATED_GRADS = {'D': ('bf16/grad', 'f32/grad'),
+                      'E': ('f32/fixed_grad',)}
+GOLDEN_NEXT = {'bf16': 'f32', 'f32': 'f64'}
+
+
+def golden_grad_rules(arrays, case, leaves, sketch_seed, grads):
+    """The sketch rule of each gradient in ``grads`` (record key such as
+    ``'f32/grad'`` → the port's flat vector in the Flax layout) against
+    JAX's, with JAX's next precision as its yardstick; ``grads_ok`` over
+    those :data:`GOLDEN_GATED_GRADS` names."""
+    n = next(iter(grads.values())).size
+    hashed = sketch_hash(n, sketch_seed)
+    out = {}
+    for key, vec in grads.items():
+        prec, name = key.split('/')
+        out[key] = sketch_rule(
+            count_sketch(vec, hashed),
+            arrays[f'{case}/{prec}/{name}_sketch'],
+            arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_sketch'])
+        p = leaf_norms(vec, leaves)
+        j = arrays[f'{case}/{prec}/{name}_norms']
+        j_ref = arrays[f'{case}/{GOLDEN_NEXT[prec]}/{name}_norms']
+        excess = np.abs(p - j) / (np.abs(j - j_ref) + SLACK * j
+                                  + 1e-30)
+        out[key]['leaf_excess'] = float(excess.max())
+    out['grads_ok'] = all(out[k]['ok'] for k in GOLDEN_GATED_GRADS[case]
+                          if k in out)
+    return out
+
+
+def golden_step_report(arrays, case, leaves, sketch_seed, terms, grad,
+                       update):
+    """The bf16 step's loss terms under the continuous rule and its
+    update's sketch under the sketch rule, reported.  The terms are four
+    to six scalars, each yardstick one draw of JAX's bf16 noise, which can
+    land near 0 by chance; Adam's sign rule makes the update noisier than
+    the gradient."""
+    hashed = sketch_hash(grad.size, sketch_seed)
+    ref = {p: {k: arrays[f'{case}/{p}/{k}'] for k in (
+        'terms', 'update_sketch', 'update_norms')} for p in ('bf16', 'f32')}
+    res = dict(terms=continuous_rule(terms, ref['bf16']['terms'],
+                                            ref['f32']['terms']),
+               update=sketch_rule(count_sketch(update, hashed),
+                                         ref['bf16']['update_sketch'],
+                                         ref['f32']['update_sketch']))
+    p = leaf_norms(update, leaves)
+    j, j32 = ref['bf16']['update_norms'], ref['f32']['update_norms']
+    excess = np.abs(p - j) / (np.abs(j - j32) + SLACK * j + 1e-30)
+    res['update_leaf_excess'] = float(excess.max())
     return res
